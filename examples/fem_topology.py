@@ -11,10 +11,11 @@ import sys
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-# persistent compile cache: repeat runs skip the (slow) TPU compilation
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    os.path.join(os.path.expanduser("~"), ".cache", "paropt_tpu_jax"))
+# persistent compile cache (JAX_COMPILATION_CACHE_DIR, else the checkout's
+# .jax_cache): repeat runs skip compilation
+from paropt_tpu.utils.compile_cache import enable_compilation_cache  # noqa: E402
+
+enable_compilation_cache()
 
 import numpy as np
 
@@ -27,7 +28,7 @@ def main():
     ap.add_argument("--algorithm", default="mma", choices=["ip", "tr", "mma"])
     ap.add_argument("--fused", action="store_true",
                     help="run the whole MMA outer loop as one XLA "
-                         "computation (fastest on TPU)")
+                         "computation (fastest on an accelerator)")
     ap.add_argument("--solver", default="mgcg",
                 choices=["jacobi", "mgcg"],
                 help="FEM linear solver (mgcg: multigrid-CG, ~5x "

@@ -15,9 +15,6 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-if os.environ.get("JAX_PLATFORMS", "") not in ("cpu",):
-    os.environ.setdefault("PAROPT_TPU_NO_X64", "1")
-
 import numpy as np
 
 

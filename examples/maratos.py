@@ -13,10 +13,11 @@ import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-# persistent compile cache: repeat runs skip the (slow) TPU compilation
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    os.path.join(os.path.expanduser("~"), ".cache", "paropt_tpu_jax"))
+# persistent compile cache (JAX_COMPILATION_CACHE_DIR, else the checkout's
+# .jax_cache): repeat runs skip compilation
+from paropt_tpu.utils.compile_cache import enable_compilation_cache  # noqa: E402
+
+enable_compilation_cache()
 
 import numpy as np
 

@@ -10,7 +10,7 @@ The reference's Python surface (`paropt/ParOpt.pyx`) has users subclass
         def evalObjCon(self, x):                return fail, fobj, con
         def evalObjConGradient(self, x, g, A):  g[:] = ...; A[i][:] = ...
 
-This module reproduces that surface on top of the TPU-native framework so
+This module reproduces that surface on top of the JAX-native framework so
 reference scripts port with only the import changed:
 
     from paropt_tpu import compat as ParOpt
@@ -46,7 +46,7 @@ __all__ = ["Problem", "Optimizer", "InteriorPoint", "TrustRegion", "MMA",
 
 # the reference exposes ParOpt.dtype (double, or complex in the complex
 # build); derivatives here are exact via autodiff so the real dtype suffices
-# `ParOpt.dtype` analogue: double wherever x64 is on, f32 on TPU
+# `ParOpt.dtype` analogue: double wherever x64 is on, else f32
 import jax as _jax
 dtype = np.float64 if _jax.config.jax_enable_x64 else np.float32
 
@@ -310,7 +310,7 @@ class CompactQuasiNewton:
                  storage_dtype: str = "auto"):
         """``storage_dtype``: 'auto' (the shipping policy — bfloat16 ring
         buffers at f32-on-accelerator), 'native', or 'bfloat16' — the
-        TPU-extension `qn_storage_dtype` option for this reference-API
+        extension `qn_storage_dtype` option for this reference-API
         surface."""
         from .ops.qn import qn_init
         from .dtypes import resolve_dtype

@@ -1,6 +1,6 @@
 """Compact eigenvalue-constraint approximation path.
 
-TPU-native re-design of `ParOptCompactEigenvalueApprox.{h,cpp}` (930 LoC):
+JAX-native re-design of `ParOptCompactEigenvalueApprox.{h,cpp}` (930 LoC):
 for eigenvalue (buckling / natural-frequency) constraints in topology
 optimization, one dense constraint is modeled by a low-rank quadratic
 approximation
@@ -14,7 +14,7 @@ approximation with the z0-scaled constraint curvature into one compact form
 
     B = b0·I − [Z_qn; h]ᵀ blockdiag(M_qn, M⁻¹/z0)⁻¹ [Z_qn; h]
 
-All pieces are dense [N, n] stacks — matmul-shaped, MXU-friendly, one fused
+All pieces are dense [N, n] stacks — matmul-shaped, one fused
 reduction per product when n is sharded.
 """
 

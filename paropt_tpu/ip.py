@@ -1,13 +1,13 @@
 """Primal-dual interior-point optimizer.
 
-TPU-native re-design of `ParOptInteriorPoint` (`src/ParOptInteriorPoint.{h,cpp}`,
+JAX-native re-design of `ParOptInteriorPoint` (`src/ParOptInteriorPoint.{h,cpp}`,
 ~6.8k LoC): the same algorithm — elastic double-slack l1 formulation, monotone /
 Mehrotra / predictor-corrector / complementarity-fraction barrier strategies,
 least-squares and affine-step multiplier initialization, quasi-definite KKT
 factorization with dense-multiplier Schur complement and SMW compact-QN
 correction, fraction-to-boundary scaling, l1-merit Armijo line search with
 function-precision relaxation, and the QN-reset/diagonal-step degradation
-ladder — but structured TPU-first:
+ladder — but structured accelerator-first:
 
 - All state lives in fixed-shape pytrees (`IPVars`, `QNState`); every
   numerically heavy phase (residual+norms, KKT factor+solve, step scaling,
@@ -382,8 +382,8 @@ class InteriorPoint:
         self.dtype = resolve_dtype(
             jnp.float64 if o["dtype"] == "float64" else jnp.float32)
         # The reference default abs_res_tol=1e-6 holds at f32 too: measured
-        # residual floors are ~3e-7 at 1M vars (scripts/precision_study.py,
-        # CPU f32 and TPU f32 agree), and the no-improvement exit
+        # residual floors are ~3e-7 at 1M vars (scripts/precision_study.py),
+        # and the no-improvement exit
         # (line_search_test) handles problems where the f32 floor bites
         # before the tolerance — no silent relaxation.
 

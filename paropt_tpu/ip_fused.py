@@ -8,11 +8,11 @@ iteration can be ONE compiled XLA computation: residual + norms, quasi-definite
 KKT factor/solve, fraction-to-boundary scaling, merit/penalty update, the full
 Armijo line search (model evaluations inlined), and the variable update.
 
-This is the TPU-native answer to the reference's "hot loop = IP-on-QP"
+This is the JAX-native answer to the reference's "hot loop = IP-on-QP"
 structure (SURVEY.md §3.1): a subproblem solve becomes ~K jitted step calls
 (host-paced, one device round-trip each) or a single `lax.while_loop` call
 (`solve` with jit_loop=True) with zero host round-trips — the right shape for
-a TPU where dispatch latency would otherwise dominate.
+an accelerator where dispatch latency would otherwise dominate.
 
 Feature set (a subset of ip.py, sufficient for the TR/MMA inner solves and
 jax-native outer problems): elastic double-slack formulation, all four
@@ -32,6 +32,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from .dtypes import full_precision
 from .ops import kkt
 from .ops import qn as qnmod
 from .ops.kkt import IPVars, ProblemData
@@ -88,7 +89,7 @@ class FusedIPOptions(NamedTuple):
     use_diag_hessian: bool = False          # B from model.hess_diag
     sequential_linear_method: bool = False  # B = qn_sigma (bounds regularize)
     norm_type: str = "infinity"
-    # fused Newton-Krylov (inexact GMRES) phase — a TPU-native extension of
+    # fused Newton-Krylov (inexact GMRES) phase — a JAX-native extension of
     # the reference's host-callback GMRES (`ParOptInteriorPoint.cpp:
     # 5774-6195`): once the residuals drop below nk_switch_tol, solve the
     # exact KKT linearization (autodiff Hessian-vector products) by
@@ -206,8 +207,8 @@ class FusedIP:
               jit_loop: bool = False, max_iters: Optional[int] = None,
               on_chunk=None, chunk=None) -> FusedState:
         """Run to convergence.  jit_loop=True runs the whole solve as one
-        `lax.while_loop` XLA computation (zero host round-trips — the TPU
-        path); otherwise the host paces the jitted steps and can stop early.
+        `lax.while_loop` XLA computation (zero host round-trips — the
+        accelerator path); otherwise the host paces the jitted steps and can stop early.
 
         ``on_chunk(state)`` / ``chunk``: when either is given with
         jit_loop=True, the while_loop runs in bounded k-windows
@@ -244,11 +245,11 @@ class FusedIP:
         """Run MANY whole solves as ONE XLA computation (`jax.vmap` over the
         fused `lax.while_loop`).
 
-        A TPU-native capability with no reference analogue (in the reference
+        A JAX-native capability with no reference analogue (in the reference
         every solve is a separate MPI job, `ParOptInteriorPoint.cpp:4399`):
         k multi-start solves — or a parameter sweep over problem data —
         batch onto the same device program, turning the per-variable work
-        into [k, n]-shaped kernels that keep the VPU/MXU fed at sizes where
+        into [k, n]-shaped kernels that keep the device busy at sizes where
         a single instance is latency-bound.  Instances that converge first
         are frozen by the while_loop batching rule (their carry is masked)
         while the rest keep iterating, so the batch costs max-iterations,
@@ -328,6 +329,7 @@ def _get_compact(opts: FusedIPOptions, model: ModelFns, state: FusedState,
     return (jnp.asarray(b0, state.vars.x.dtype), None, None)
 
 
+@full_precision
 def _fused_init(model: ModelFns, opts: FusedIPOptions, x0, d: ProblemData,
                 model_params, qn_state, compact) -> FusedState:
     dtype = x0.dtype
@@ -443,7 +445,7 @@ def _fused_gmres(model: ModelFns, opts: FusedIPOptions, model_params,
                  v: kkt.IPVars, d: ProblemData, f, cq, r: kkt.IPVars, rtol,
                  mu):
     """Right-preconditioned GMRES on the exact KKT linearization, UNROLLED
-    to static length inside the fused step (the TPU-native form of
+    to static length inside the fused step (the JAX-native form of
     `computeKKTGMRESStep`, `ParOptInteriorPoint.cpp:5774-6195`).
 
     - operator: the exact Lagrangian Hessian-vector product from
@@ -613,6 +615,7 @@ def _fused_gmres(model: ModelFns, opts: FusedIPOptions, model_params,
     return p_out, iters
 
 
+@full_precision
 def _fused_step(model: ModelFns, opts: FusedIPOptions, state: FusedState,
                 d: ProblemData, model_params, compact) -> FusedState:
     """One full major iteration (pure, jittable)."""

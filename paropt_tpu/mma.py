@@ -1,6 +1,6 @@
 """Method of Moving Asymptotes (Svanberg) optimizer.
 
-TPU-native re-design of `ParOptMMA` (`src/ParOptMMA.{h,cpp}`, 1.2k LoC): the
+JAX-native re-design of `ParOptMMA` (`src/ParOptMMA.{h,cpp}`, 1.2k LoC): the
 MMA object is itself a `Problem` — the separable convex MMA approximation —
 solved each outer iteration by the interior-point method with a diagonal
 Hessian and no line search (forced options, `ParOptMMA.cpp:342-344`).
@@ -254,7 +254,7 @@ class MMA(Problem):
             self.z, self.zw, self.zl, self.zu = z, zw, zl, zu
             self.initialize_subproblem(x)
             infeas, l1, linf = self.compute_kkt_error()
-            # 'gradient' scaling: relative stationarity (TPU extension for
+            # 'gradient' scaling: relative stationarity (extension for
             # f32 / large n — see mma_kkt_error_scaling in the registry)
             s1 = sinf = 1.0
             if scaling == "gradient":
@@ -464,7 +464,7 @@ class MMA(Problem):
 # Fully-fused MMA: the ENTIRE outer loop (asymptote updates, separable
 # coefficient construction, inner interior-point solves, KKT error test) as
 # one XLA computation under lax.while_loop — zero host round-trips.  A
-# TPU-native extension of the reference's host outer loop
+# JAX-native extension of the reference's host outer loop
 # (`ParOptMMA.cpp:318-379`); available for jax-native problems whose sparse
 # constraint Jacobian is CONSTANT (the topology weighting-constraint case).
 # ---------------------------------------------------------------------------
@@ -600,13 +600,13 @@ def _fused_mma_step(user_model: ModelFns, mma_model: ModelFns,
                       jnp.maximum(0.0, -cw), jnp.abs(cw)))
     if mo.kkt_error_scaling == "gradient":
         # relative stationarity: scale the tolerances by the objective
-        # gradient norms (dtype/n-aware; TPU extension)
+        # gradient norms (dtype/n-aware; extension)
         s1 = jnp.maximum(1.0, jnp.sum(jnp.abs(g)))
         sinf = jnp.maximum(1.0, jnp.max(jnp.abs(g)))
     else:
         s1 = sinf = jnp.ones((), dt)
     tol_met = (l1 < mo.l1_tol * s1) | (linf < mo.linf_tol * sinf)
-    # no-improvement window (TPU extension, mma_max_no_improvement):
+    # no-improvement window (extension, mma_max_no_improvement):
     # terminate at the arithmetic-noise stationarity floor.  Frozen once
     # converged so the while_loop carries stable values.
     active = (state.k > 0) & ~state.converged
@@ -748,6 +748,9 @@ class FusedMMA:
                        lbv, ubv, d_tmpl, ())
         self._mo = mo
         self._ev = ev
+        # compiled: run eagerly, a FEM model's state solve compiles hundreds
+        # of small programs
+        self._ev_jit = jax.jit(ev)
         self._problem = problem
         self._write_freq = o["write_output_frequency"]
         self._state0 = state0
@@ -773,8 +776,8 @@ class FusedMMA:
         time).  ``chunk='auto'`` (default) MEASURES one outer iteration and
         sizes the device calls to ~10 s each (utils/chunked.py), so no
         problem/cg_iters combination can compile a watchdog-killing
-        program — a 192x96 FEM @ cg800 in ONE while_loop call crashed the
-        TPU worker.  Pass an int to pin the chunk, or ``None`` to run the
+        program — a 192x96 FEM @ cg800 in ONE while_loop call once crashed
+        the device worker.  Pass an int to pin the chunk, or ``None`` to run the
         whole loop in one device call (at your own risk at scale).
 
         ``jit_loop=False`` steps one jitted outer iteration at a time from
@@ -804,7 +807,7 @@ class FusedMMA:
                     break
         # state.fobj is the value at the point the LAST step evaluated;
         # when the loop exits at the iteration cap, x has advanced once
-        fobj_final, _, _ = self._ev((), state.x)
+        fobj_final, _, _ = self._ev_jit((), state.x)
         result = {"x": state.x, "fobj": float(fobj_final),
                   "converged": bool(state.converged),
                   "stalled": bool(state.stalled), "niter": int(state.k),
@@ -844,7 +847,7 @@ class FusedMMA:
         from .utils.chunked import run_chunked_batched
         state = run_chunked_batched(self._batched_run, state,
                                     self._mo.max_iterations, chunk)
-        fobj_final = jax.vmap(lambda x: self._ev((), x)[0])(state.x)
+        fobj_final = jax.jit(jax.vmap(lambda x: self._ev((), x)[0]))(state.x)
         results = {"x": state.x, "fobj": np.asarray(fobj_final),
                    "converged": np.asarray(state.converged),
                    "stalled": np.asarray(state.stalled),

@@ -13,7 +13,7 @@ length L, state q = [x, θ, ẋ, θ̇], force u on the cart):
     θ̈ = −( L·m2·cosθ·sinθ·θ̇² + u·cosθ + (m1+m2)·g·sinθ )
          / ( L·(m1 + m2·sin²θ) )
 
-TPU-first design vs the reference:
+accelerator-first design vs the reference:
 
 - The implicit-midpoint time march is a `lax.scan`; each step runs a FIXED
   number of Newton iterations on the 4-dimensional implicit residual (tiny

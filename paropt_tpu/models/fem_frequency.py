@@ -1,7 +1,7 @@
 """Frequency-constrained SIMP topology optimization — the compact
 eigenvalue-approximation path (`ParOptCompactEigenvalueApprox.{h,cpp}`,
 `examples/eigenvalue/eigenvalue_opt.py`) exercised on the reference's real
-workload class (continuum topology), TPU-first:
+workload class (continuum topology), accelerator-first:
 
     min   mass(x) = mean(xf)
     s.t.  KS_min(lam(x)) >= lam_target            (one dense constraint)
@@ -15,14 +15,14 @@ g_i = (lam_i - lam_target)/lam_target:
 
     KS = min_i g_i - log(sum_i exp(-rho (g_i - min g))) / rho  >= 0.
 
-TPU-first implementation choices:
+accelerator-first implementation choices:
 
 - **Matrix-free shift-inverted LOBPCG**: the N lowest eigenpairs come from
   the LARGEST eigenvalues of S = M^{1/2} K^{-1} M^{1/2} (lam = 1/mu,
   v = M^{1/2} phi so unit v gives the M-normalization phi' M phi = 1).
   S is applied as (sqrt-mass scale) ∘ (blocked diagonal-preconditioned CG)
   ∘ (sqrt-mass scale) — each CG matvec is the same [ne, 8] batched element
-  matmul (MXU) as the static path; `lobpcg_standard` block iterations are
+  matmul as the static path; `lobpcg_standard` block iterations are
   matmul-shaped. No matrix is ever assembled.
 - **Analytic eigenvalue sensitivities** (no differentiation through the
   eigensolve): dlam_i/dxf_e = phi_e' dK_e phi_e - lam_i phi_e' dM_e phi_e,
@@ -137,7 +137,7 @@ class _FrequencyBase(Problem):
         fixed 1e-8 relative floor leaves cond(M) ~ 1e8 — garbage linear
         solves in f32 that turn the merged compact indefinite and NaN the
         inner QP's quasi-definite Cholesky (observed: 64x32x32 fused
-        eigen-TR frozen at mass=1.0 with rho=nan on the v5e)."""
+        eigen-TR in f32 frozen at mass=1.0 with rho=nan)."""
         ev = self._eval(x)
         eta = ev["eta"]
         scale = self.ks_rho / self.lam_target ** 2
@@ -296,8 +296,10 @@ class FrequencyTopology(_FrequencyBase):
             return fem.emin + xf ** fem.penal * (fem.e0 - fem.emin)
 
         def eig_fn(x, V0=None):
-            # full-precision matmuls for EVERY caller (TPU f32 defaults to
-            # bf16 inputs, which degrades the dense Rayleigh-Ritz
+            # full-precision matmuls for EVERY caller (default-precision
+            # f32 matmuls may take reduced-precision inputs on an
+            # accelerator — TF32 on GPUs — which degrades the dense
+            # Rayleigh-Ritz
             # projections inside LOBPCG): applying the context here covers
             # lam_target calibration, the host path, and frequencies()
             # rather than relying on call-site wrapping

@@ -8,15 +8,15 @@ Minimum-compliance design of an nex × ney bilinear-quad cantilever:
          cap − regionmean(xf) >= 0              (per-region weighting, sparse)
          0 <= x <= 1
 
-TPU-first implementation choices:
+accelerator-first implementation choices:
 
 - **Matrix-free CG** for K u = f: the element stiffness product is a dense
-  [ne, 8] batch matmul against the constant 8×8 element matrix (MXU), with
+  [ne, 8] batch matmul against the constant 8×8 element matrix, with
   gather/scatter only at the element-node incidence (regular pattern).
 - **Adjoint gradient via custom_vjp**: compliance is self-adjoint, so
   dc/dx_e = −p xf^{p−1}(E0−Emin)·(uₑᵀ k0 uₑ) with NO second solve and no
   differentiation through the CG loop.
-- The density filter is a shift-and-add 2-D stencil (pure VPU).
+- The density filter is a shift-and-add 2-D stencil (elementwise work).
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ _CORNERS2D = ((0, 0), (1, 0), (1, 1), (0, 1))
 
 def _gather2d(u, nex, ney):
     """[ne, 8] element dof values via corner SLICES of the node grid
-    (== u[edofs], but with no TPU gather op)."""
+    (== u[edofs], but with no gather op)."""
     ug = u.reshape(nex + 1, ney + 1, 2)
     ue = jnp.concatenate(
         [ug[:-1, :-1], ug[1:, :-1], ug[1:, 1:], ug[:-1, 1:]], axis=-1)
@@ -188,9 +188,11 @@ class FEMTopology(Problem):
         # build the matrix-free operators once
         self._compliance = self._make_compliance()
         # normalize the objective by the initial compliance so the volume
-        # multiplier is O(1) and well inside the elastic penalty gamma
+        # multiplier is O(1) and well inside the elastic penalty gamma (one
+        # compiled state solve; run eagerly it compiles ~300 small programs)
         x0 = jnp.full(ne, volume_fraction, dt)
-        self.c_scale = 1.0 / float(self._compliance(self._filter(x0)))
+        self.c_scale = 1.0 / float(jax.jit(
+            lambda x: self._compliance(self._filter(x)))(x0))
 
     # -- filter ---------------------------------------------------------
     def _filter(self, x):
@@ -207,8 +209,8 @@ class FEMTopology(Problem):
     # -- element gather/scatter ------------------------------------------
     # On the regular grid the element-node incidence is four corner SLICES
     # of the node grid, so both directions are pure slicing/padding — the
-    # equivalent u[self.edofs] gather / .at[...].add scatter are
-    # pathologically slow on TPU (CLAUDE.md perf rules).
+    # equivalent u[self.edofs] gather / .at[...].add scatter need
+    # index arrays and atomics that slices and pads avoid.
 
     def _gather_elem(self, u):
         """[ne, 8] element dof values via corner slices (== u[self.edofs])."""
@@ -224,8 +226,8 @@ class FEMTopology(Problem):
         """K(E) @ u, matrix-free: slice element dofs off the node grid,
         batch 8x8 matmul, pad-add back; fixed dofs carry identity."""
         ue = self._gather_elem(u)                   # [ne, 8]
-        # full f32 accumulation: the TPU's default bf16 matmul inputs make
-        # CG diverge on the ill-conditioned SIMP system
+        # full f32 accumulation: reduced-precision matmul inputs (bf16,
+        # TF32) make CG diverge on the ill-conditioned SIMP system
         fe = jnp.matmul(ue, self.KE,
                         precision=jax.lax.Precision.HIGHEST) * E[:, None]
         out = self._scatter_elem(fe)
@@ -233,7 +235,7 @@ class FEMTopology(Problem):
 
     def _solve(self, E):
         """Preconditioned CG on K(E) u = f (fixed iteration count —
-        jit/TPU friendly)."""
+        jit friendly)."""
         return self._cg(E, self.f)
 
     # -- geometric multigrid ----------------------------------------------
@@ -322,8 +324,9 @@ class FEMTopology(Problem):
                 return r / diag
         b = jnp.where(self.fixed_mask > 0, 0.0, b)
 
-        # CG scalars need full-precision reductions: on TPU, default-precision
-        # f32 dots take bf16 inputs, and on the ill-conditioned SIMP system
+        # CG scalars need full-precision reductions: default-precision f32
+        # dots may take reduced-precision inputs on an accelerator (bf16,
+        # TF32), and on the ill-conditioned SIMP system
         # (large meshes, E contrast ~1e3) the rounded alpha/beta make CG
         # diverge to NaN late in the optimization (observed at 192x96).
         # The breakdown guard must also be representable in f32 — 1e-300

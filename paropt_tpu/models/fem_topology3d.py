@@ -1,4 +1,4 @@
-"""3-D SIMP topology optimization: matrix-free voxel FEM on TPU.
+"""3-D SIMP topology optimization: matrix-free voxel FEM on an accelerator.
 
 The reference's stated target workload is *large-scale 3-D* (multi-material)
 topology optimization (`README.md:12-31`, `docs/ParOpt_theory_manual.tex:
@@ -12,8 +12,8 @@ topology optimization (`README.md:12-31`, `docs/ParOpt_theory_manual.tex:
 
 - 8-node hexahedral voxels, 3 dofs/node; K(E)·u is matrix-free:
   gather element dofs [ne, 24] → one [ne, 24]@[24, 24] batched matmul
-  (full-f32 accumulation — TPU bf16 default diverges on the ill-conditioned
-  SIMP system, see fem_topology.py) → scatter-add.
+  (full-f32 accumulation — reduced-precision matmul inputs diverge on the
+  ill-conditioned SIMP system, see fem_topology.py) → scatter-add.
 - Jacobi-preconditioned CG with full-precision scalar reductions and
   freeze/restart breakdown guards (same recipe as the 2-D model).
 - 6-neighbor density filter via `jnp.roll` on the voxel grid (no gather).
@@ -25,6 +25,8 @@ on-device.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -89,8 +91,8 @@ def _sl(a):
 
 def _to_grid3(u_flat, nnx, nny, nnz):
     """Flat AoS dof vector [3*nnx*nny*nnz] -> SoA component grids
-    [3, nnx, nny, nnz] (minor dim nnz: 63-80% TPU lane utilization vs
-    2-19% for the [ne, 24] form's minor dims of 3/24)."""
+    [3, nnx, nny, nnz] (minor dim nnz instead of the [ne, 24] form's
+    minor dims of 3/24)."""
     return jnp.moveaxis(u_flat.reshape(nnx, nny, nnz, 3), -1, 0)
 
 
@@ -99,24 +101,25 @@ def _from_grid3(ug):
     return jnp.moveaxis(ug, 0, -1).reshape(-1)
 
 
-def _grid_min_nnz() -> int:
-    """layout='auto' threshold: use the grid-form stencil when the node
-    grid's minor dim (nnz = nez + 1) is at least this, else the [ne, 24]
-    AoS matmul form.  The stencil wins 18.8x at nnz=81 (1M voxels) but
-    loses ~15x at nnz=17 (32x16x16): 576 scalar multiply-adds on a
-    17-wide minor dim pad to 128 lanes AND compile ~12x slower
-    (BENCH_r04 vs r03).  Selection is PER MULTIGRID LEVEL, so a large
-    mesh still runs its small coarse levels in the AoS form."""
+def _grid_min_nnz() -> Optional[int]:
+    """layout='auto' threshold: use the grid-form stencil on multigrid
+    levels whose node-grid minor dim (nnz = nez + 1) is at least
+    `PAROPT_TPU_FEM3D_GRID_MIN_NNZ`, else the [ne, 24] AoS matmul form.
+    Unset (None), 'auto' is AoS on every level: on the H100 the 576-term
+    stencil on the nnz-81 top level of the 160x80x80 mesh made one state
+    solve 3.5x slower and its compilation 3.2x longer (CHANGES.md,
+    bring-up; scripts/fem3d_layout.py measures it)."""
     import os
-    return int(os.environ.get("PAROPT_TPU_FEM3D_GRID_MIN_NNZ", "48"))
+    value = os.environ.get("PAROPT_TPU_FEM3D_GRID_MIN_NNZ")
+    return int(value) if value else None
 
 
 def _kmul_aos(KE, Eg, ug, fixed_g, zero_entry):
     """K(E) @ u in the [ne, 24] AoS form, grid-in/grid-out: corner-slice
     gather -> one [ne, 24]@[24, 24] matmul (full-f32 accumulation) ->
     static-pad scatter.  Semantics identical to _kmul_grid; preferred at
-    small meshes where the 576-term stencil underutilizes TPU lanes and
-    bloats compile time (see _grid_min_nnz)."""
+    small meshes, where the 576-term stencil bloats compile time (see
+    _grid_min_nnz)."""
     nex, ney, nez = Eg.shape
     ug0 = jnp.where(fixed_g > 0, 0.0, ug) if zero_entry else ug
     ue = _gather3d(_from_grid3(ug0), nex, ney, nez)
@@ -142,8 +145,7 @@ def _kmul_grid(KEh, Eg, ug, fixed_g, zero_entry):
     """K(E) @ u entirely on SoA component grids: 576 scalar-coefficient
     multiply-adds on [nex, ney, nez] element grids, assembled with 8
     static pads — no [ne, 24] materialization, no strided minor-dim
-    copies.  18.8x the [ne, 24] gather/matmul/scatter form at 1M voxels
-    on a v5e (2.37 vs 44.3 ms; scripts/ab_kmul3d_grid.py).
+    copies.
 
     `zero_entry=True` gives the symmetric-Dirichlet operator (zero on
     entry, identity on exit -> SPD) used on multigrid levels;
@@ -335,8 +337,10 @@ class FEMTopology3D(Problem):
         self._mg_prolong = [_prolong3d(*d) for d in dims[1:]]
 
         self._compliance = self._make_compliance()
+        # one compiled state solve (run eagerly it compiles ~300 programs)
         x0 = jnp.full(ne, volume_fraction, dt)
-        self.c_scale = 1.0 / float(self._compliance(self._filter(x0)))
+        self.c_scale = 1.0 / float(jax.jit(
+            lambda x: self._compliance(self._filter(x)))(x0))
 
     # -- filter (6-neighbor average on the voxel grid) -------------------
     def _filter(self, x):
@@ -353,7 +357,7 @@ class FEMTopology3D(Problem):
 
     # -- element gather/scatter --------------------------------------------
     # Regular-voxel incidence == eight corner SLICES of the node grid; both
-    # directions are pure slicing/padding (no TPU gather/scatter ops).
+    # directions are pure slicing/padding (no gather/scatter ops).
 
     def _gather_elem(self, u):
         """[ne, 24] element dof values via corner slices (== u[self.edofs])."""
@@ -368,17 +372,16 @@ class FEMTopology3D(Problem):
     # All state-solve linear algebra runs on SoA component grids
     # [3, nnx, nny, nnz].  The K-apply kernel is size-selected PER GRID
     # (hence per multigrid level): the scalar-coefficient stencil
-    # _kmul_grid above nnz >= _grid_min_nnz() — 18.8x the [ne, 24] form
-    # at 1M voxels on a v5e (scripts/ab_kmul3d_grid.py) — and the
-    # [ne, 24] AoS matmul form below it, where the stencil's 576
-    # multiply-adds pad a narrow minor dim to 128 lanes and compile ~12x
-    # slower (the BENCH_r04 32x16x16 regression).  The flat [ndof] AoS
-    # contract is kept at the _solve/_kmul boundaries.
+    # _kmul_grid at nnz >= _grid_min_nnz() when that is set, else the
+    # [ne, 24] AoS matmul form, whose compile time the stencil's 576
+    # multiply-adds exceed several times.  The flat [ndof] AoS contract is
+    # kept at the _solve/_kmul boundaries.
 
     def _use_grid(self, nnz: int) -> bool:
         if self.layout != "auto":
             return self.layout == "grid"
-        return nnz >= _grid_min_nnz()
+        threshold = _grid_min_nnz()
+        return threshold is not None and nnz >= threshold
 
     def _kmul_g(self, Eg, ug, fixed_g, zero_entry):
         """K(E) @ u on SoA grids, layout-dispatched by minor dim."""

@@ -51,9 +51,9 @@ class SyntheticTopology(Problem):
         self.kernel = k / jnp.sum(k)
         self.eps = 0.01
         if use_sparse:
-            # transposed partition (variable i in block i mod nwcon): the
-            # TPU-optimal layout — every Jacobian product keeps the large
-            # axis minor (see kkt.detect_aw_layout)
+            # transposed partition (variable i in block i mod nwcon): every
+            # Jacobian product keeps the large axis minor (see
+            # kkt.detect_aw_layout)
             cols = (np.arange(nwcon, dtype=np.int32)[:, None]
                     + np.arange(block, dtype=np.int32)[None, :] * nwcon)
             vals = -np.full((nwcon, block), 1.0 / block)
@@ -62,9 +62,8 @@ class SyntheticTopology(Problem):
         self._dtype = dt
 
     def _filter(self, x):
-        # shift-and-add stencil: small-width 1-D convolutions lower poorly
-        # on the TPU MXU; explicit shifts are pure VPU work (and so is the
-        # autodiff transpose)
+        # shift-and-add stencil: explicit shifts are elementwise work that
+        # XLA fuses (and so is the autodiff transpose)
         pad = self.kernel.shape[0] // 2
         xp = jnp.pad(x, pad, mode="edge")
         n = x.shape[0]

@@ -1,1 +1,1 @@
-"""Numerical kernels: KKT algebra, compact quasi-Newton, native sparse, Pallas."""
+"""Numerical kernels: KKT algebra, compact quasi-Newton, native sparse."""

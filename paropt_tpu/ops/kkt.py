@@ -1,6 +1,6 @@
 """KKT system assembly and solution for the interior-point method.
 
-This implements, TPU-first, the role of the reference's KKT machinery
+This implements, accelerator-first, the role of the reference's KKT machinery
 (`setUpKKTDiagSystem` `ParOptInteriorPoint.cpp:1832-1971`, algebra documented
 at `:1973-2072`, quasi-definite matrix `src/ParOptSparseMat.{h,cpp}`, SMW
 compact-QN correction `setUpKKTSystem` `:2634-2698`), but the algebra below is
@@ -48,6 +48,9 @@ from typing import Any, Optional, Tuple
 import jax
 import jax.numpy as jnp
 
+from ..dtypes import full_precision
+
+
 def is_blocked_pattern(cols, n) -> bool:
     """True when cols == arange(n).reshape(nwcon, k): the partition pattern
     whose Jacobian products are pure reshapes (no gather/scatter)."""
@@ -62,11 +65,10 @@ def detect_aw_layout(cols, n) -> str:
     """Classify the sparse-Jacobian pattern:
 
     - 'blocked'   : cols == arange(n).reshape(nwcon, k) — contiguous blocks;
-      products are reshapes to [..., nwcon, k] (minor dim k: fine on CPU,
-      lane-padded on TPU).
+      products are reshapes to [..., nwcon, k] (minor dim k).
     - 'blocked_t' : cols[i, j] == i + j*nwcon — strided/transposed blocks;
-      products are reshapes to [..., k, nwcon] with the LARGE axis minor —
-      the TPU-optimal layout (no lane padding).
+      products are reshapes to [..., k, nwcon] with the LARGE axis minor
+      (contiguous, coalesced accesses along n).
     - 'gather'    : anything else (general gather/scatter).
     """
     import numpy as _np
@@ -159,8 +161,7 @@ class ProblemData:
     nwblock: int = dataclasses.field(metadata=dict(static=True), default=1)
     # Pattern classification from detect_aw_layout(): 'gather' | 'blocked'
     # | 'blocked_t'.  Partition patterns lower to pure reshapes (no
-    # gather/scatter, which are pathologically slow on TPU); 'blocked_t'
-    # keeps the large axis minor — the TPU-optimal layout.
+    # gather/scatter); 'blocked_t' keeps the large axis minor.
     Aw_layout: str = dataclasses.field(metadata=dict(static=True),
                                        default="gather")
     # host-callback escape hatch (the reference's addSparseJacobian-style
@@ -254,6 +255,7 @@ class ProblemData:
 # ---------------------------------------------------------------------------
 
 
+@full_precision
 def kkt_residual(v: IPVars, d: ProblemData, mu, rel_bound_barrier: float = 1.0
                  ) -> IPVars:
     """Perturbed KKT residuals, packed into an IPVars-shaped pytree.
@@ -307,7 +309,7 @@ class KKTFactor:
     Phi_z: Optional[jnp.ndarray]         # [K, ncon]
     Phi_w: Optional[jnp.ndarray]         # [K, nwcon]
     Ce_inv: Any                          # explicit inverse of Ce (K x K):
-    # one LU at setup, then every SMW correction is a matmul (MXU) instead
+    # one LU at setup, then every SMW correction is a matmul instead
     # of sequential triangular solves
     # host-side factor object for the general-CSR constraint path (the
     # ParOptQuasiDefSparseMat role); eager-mode only, never traced
@@ -335,58 +337,7 @@ def _chol_solve_blocks(chol, b):
     return out[..., 0].reshape(b.shape)
 
 
-def _pallas_qd_enabled() -> bool:
-    """Use the fused Pallas quasi-def kernel.  OPT-IN since the zero-copy
-    QN compact landed (set PAROPT_TPU_PALLAS_QD=1 to enable on a single
-    accelerator chip; PAROPT_TPU_PALLAS=0 still disables all kernels).
-
-    History of this default — the winner flips with the step's byte mix,
-    so re-run scripts/ab_matrix.py after byte-mix changes:
-    - round 1 (1e-4 tol + refinement): jnp ahead, kernel opt-in;
-    - round 2 (1e-6, refinement off): kernel won 177.6 vs 142.4 it/s,
-      default-on;
-    - round 2 after the QN-roll kernel + zero-copy compact: the jnp path
-      fuses the factor's Phi chain with the raw [2m, n] ring buffer and
-      wins the 4-way interleaved A/B (qd off/qn on 209.9 vs qd on/qn on
-      194.9 it/s median; visible bytes 3.29 vs 3.03+hidden) — kernel
-      back to opt-in.
-    Single chip only — sharded inputs would need a shard_map wrapper."""
-    import os
-    # same PAROPT_TPU_PALLAS truth table as pallas_qn_enabled: any value
-    # other than unset/"1"/"true"/"on" disables every kernel
-    flag = os.environ.get("PAROPT_TPU_PALLAS")
-    if flag is not None and flag not in ("1", "true", "on"):
-        return False
-    if os.environ.get("PAROPT_TPU_PALLAS_QD") not in ("1", "true", "on"):
-        return False
-    try:
-        return (jax.default_backend() != "cpu"
-                and len(jax.devices()) == 1)
-    except Exception:  # pragma: no cover
-        return False
-
-
-_PALLAS_QD = None
-
-
-def _pallas_min_batch() -> int:
-    """Minimum multi-RHS batch for the Pallas quasi-def apply (the [2m+1, n]
-    SMW Phi formation qualifies at the default; single-RHS solves stay in
-    XLA, which fuses them into their consumers).  Env-overridable for
-    experiments (PAROPT_TPU_PALLAS_MIN_BATCH)."""
-    import os
-    return int(os.environ.get("PAROPT_TPU_PALLAS_MIN_BATCH", 8))
-
-
-def _pallas_max_n() -> int:
-    """Size cutoff for the Pallas quasi-def kernel: its batched output
-    raises peak HBM, and a 16.7M-var whole-solve OOMs a 16GB v5e with the
-    kernel on while the jnp path completes (23 iters, 2.74s).  Verified
-    working through 2^22; default cutoff 6M, env-overridable."""
-    import os
-    return int(os.environ.get("PAROPT_TPU_PALLAS_MAX_N", 6_000_000))
-
-
+@full_precision
 def quasi_def_solve(f: "KKTFactor", d: ProblemData, bx, bw):
     """Solve [[D, -Aw'], [Aw, C0]] [yx; yw] = [bx; bw] via the block-diagonal
     Schur complement Cw = C0 + Aw·D⁻¹·Aw' (`ParOptSparseMat.cpp:41-224`).
@@ -394,30 +345,8 @@ def quasi_def_solve(f: "KKTFactor", d: ProblemData, bx, bw):
 
     With a `csr_solver` installed (general-CSR path), Cw is a general sparse
     matrix factored by the native host Cholesky — eager mode only."""
-    global _PALLAS_QD
     if d.nwcon == 0:
         return f.Dinv * bx, bw
-    # batch size of this apply: the kernel only pays for LARGE multi-RHS
-    # batches (the [2m+ncon, n] SMW Phi formation); small applies fuse
-    # better in XLA (scripts/ab_matrix.py history)
-    batch = 1
-    for dim in bx.shape[:-1]:
-        batch *= dim
-    if (d.Aw_layout == "blocked_t" and d.nwblock == 1
-            and f.csr_solver is None and d.n <= _pallas_max_n()
-            and batch >= _pallas_min_batch()
-            and bx.dtype == f.Dinv.dtype):
-        if _PALLAS_QD is None:
-            _PALLAS_QD = _pallas_qd_enabled()
-        if _PALLAS_QD:
-            from .pallas_kernels import quasi_def_apply_blocked_t
-            nwcon, k = d.Aw_cols.shape
-            bx3 = bx.reshape((-1, k, nwcon))
-            bw2 = bw.reshape((-1, nwcon))
-            cwinv = 1.0 / (f.Cw_chol[:, 0, 0] ** 2)
-            yx3, yw2 = quasi_def_apply_blocked_t(
-                f.Dinv.reshape(k, nwcon), cwinv, d.Aw_vals.T, bx3, bw2)
-            return yx3.reshape(bx.shape), yw2.reshape(bw.shape)
     rw = bw - d.Aw_matvec(f.Dinv * bx)
     if f.csr_solver is not None:
         import numpy as _np
@@ -433,6 +362,7 @@ def quasi_def_solve(f: "KKTFactor", d: ProblemData, bx, bw):
     return yx, yw
 
 
+@full_precision
 def setup_kkt_factor(v: IPVars, d: ProblemData, qn_compact=None,
                      qn_sigma: float = 0.0, use_qn: bool = True,
                      csr_mat=None) -> KKTFactor:
@@ -483,30 +413,6 @@ def setup_kkt_factor(v: IPVars, d: ProblemData, qn_compact=None,
     # Schur complement over the dense multipliers: Gmat = Γ + A K_qd^{-1} A'
     ncon = d.ncon
 
-    # OPT-IN fully-fused factor path (PAROPT_TPU_FUSED_FACTOR=1): ONE
-    # Pallas sweep solves the quasi-definite system for the stacked
-    # [Z_qn; A] right-hand sides AND accumulates the [B, B] Gram matrix
-    # holding every small product the Schur (Gmat), SMW right-hand sides,
-    # and Ce assembly need.  Measured on the v5e at 1M vars it REGRESSED
-    # whole-step bytes (4.94 vs 4.13 GB data-as-arg; re-measured after the
-    # zero-copy QN compact: 3.70 vs 3.03 GB, 178.8 vs 198.9 it/s
-    # interleaved, scripts/ab_fused_factor.py) — the stack concat + gram
-    # output defeat fusions XLA otherwise finds — so the default stays the
-    # per-solve Pallas kernel; kept as validated infrastructure
-    # (correctness-tested in tests/test_pallas.py).
-    import os
-    if (os.environ.get("PAROPT_TPU_FUSED_FACTOR") in ("1", "true", "on")
-            and d.nwcon > 0 and d.Aw_layout == "blocked_t"
-            and d.nwblock == 1 and csr_mat is None and Zqn is not None
-            and Zqn.shape[0] > 0 and d.n <= _pallas_max_n()
-            and Zqn.dtype == dtype):
-        global _PALLAS_QD
-        if _PALLAS_QD is None:
-            _PALLAS_QD = _pallas_qd_enabled()
-        if _PALLAS_QD:
-            return _setup_factor_fused(v, d, Dinv, Gamma, C0, Cw_chol,
-                                       Zqn, Mqn, csr_mat)
-
     f0 = KKTFactor(Dinv=Dinv, Gamma=Gamma, C0=C0, Cw_chol=Cw_chol,
                    Xa=jnp.zeros((ncon, d.n), dtype), Wa=None, G_lu=None,
                    Zqn=None, Phi_x=None, Phi_z=None, Phi_w=None, Ce_inv=None,
@@ -516,7 +422,7 @@ def setup_kkt_factor(v: IPVars, d: ProblemData, qn_compact=None,
         Xa, Wa = quasi_def_solve(f0, d, d.A, zerow)  # batched: [ncon, n]
         Gmat = jnp.diag(Gamma) + d.A @ Xa.T
         if ncon == 1:
-            # closed-form inverse avoids a sequential LU on TPU for the
+            # closed-form inverse avoids a sequential LU on the device for the
             # common single-dense-constraint case; consumers branch on the
             # static ncon
             G_lu = 1.0 / Gmat
@@ -556,59 +462,6 @@ def setup_kkt_factor(v: IPVars, d: ProblemData, qn_compact=None,
     return f1
 
 
-def _setup_factor_fused(v: IPVars, d: ProblemData, Dinv, Gamma, C0, Cw_chol,
-                        Zqn, Mqn, csr_mat, interpret: bool = False
-                        ) -> KKTFactor:
-    """Factor setup through `phi_gram_blocked_t` (see setup_kkt_factor):
-    algebraically identical to the jnp path, verified in tests/test_pallas.
-    gram[a, b] = stack_a · yx_b with stack = [Z_qn; A]."""
-    from .pallas_kernels import phi_gram_blocked_t
-    dtype = v.x.dtype
-    ncon = d.ncon
-    K = Zqn.shape[0]
-    stack = jnp.concatenate([Zqn, d.A], axis=0) if ncon else Zqn
-    B = K + ncon
-    nwcon, k = d.Aw_cols.shape
-    cwinv = 1.0 / (Cw_chol[:, 0, 0] ** 2)
-    yx3, yw2, gram = phi_gram_blocked_t(
-        Dinv.reshape(k, nwcon), cwinv, d.Aw_vals.T,
-        stack.reshape(B, k, nwcon), jnp.zeros((B, nwcon), dtype),
-        interpret=interpret)
-    yx = yx3.reshape(B, d.n)
-    yZ, Xa = yx[:K], yx[K:]
-    ywZ, Wa = yw2[:K], yw2[K:]
-
-    if ncon > 0:
-        Gmat = jnp.diag(Gamma) + gram[K:, K:]
-        if ncon == 1:
-            G_lu = 1.0 / Gmat
-        elif ncon == 2:
-            det = Gmat[0, 0] * Gmat[1, 1] - Gmat[0, 1] * Gmat[1, 0]
-            G_lu = jnp.array([[Gmat[1, 1], -Gmat[0, 1]],
-                              [-Gmat[1, 0], Gmat[0, 0]]]) / det
-        else:
-            G_lu = jax.scipy.linalg.lu_factor(Gmat)
-        rhs = -gram[K:, :K].T                       # [K, ncon]
-        if ncon <= 2:
-            pz = rhs @ G_lu.T
-        else:
-            pz = jax.scipy.linalg.lu_solve(G_lu, rhs.T).T
-        Phi_x = yZ + pz @ Xa
-        Phi_w = ywZ + pz @ Wa
-        Phi_z = pz
-        Ce = Mqn - (gram[:K, :K] + gram[:K, K:] @ pz.T)
-    else:
-        G_lu = None
-        Phi_x, Phi_w = yZ, ywZ
-        Phi_z = jnp.zeros((K, 0), dtype)
-        Ce = Mqn - gram[:K, :K]
-    Ce_inv = jnp.linalg.inv(Ce)
-    return KKTFactor(Dinv=Dinv, Gamma=Gamma, C0=C0, Cw_chol=Cw_chol,
-                     Xa=Xa, Wa=Wa, G_lu=G_lu, Zqn=Zqn, Phi_x=Phi_x,
-                     Phi_z=Phi_z, Phi_w=Phi_w, Ce_inv=Ce_inv,
-                     csr_solver=csr_mat)
-
-
 def _solve_diag3(f: KKTFactor, d: ProblemData, bx, bc, bw):
     """Solve the 3x3 diagonal-Hessian KKT system
     [[H0, -A', -Aw'], [A, Γ, 0], [Aw, 0, C0]] p = [bx; bc; bw].
@@ -641,6 +494,7 @@ def _solve_reduced(f: KKTFactor, d: ProblemData, bx, bc, bw):
     return px, pz, pw
 
 
+@full_precision
 def reduced_rhs(v: IPVars, d: ProblemData, r: IPVars):
     """Condense the full Newton residual system K p = -r to the 3x3 system
     right-hand sides (bx, bc, bcw) via the slack/bound eliminations."""
@@ -654,6 +508,7 @@ def reduced_rhs(v: IPVars, d: ProblemData, r: IPVars):
     return bx, bc, bcw
 
 
+@full_precision
 def recover_full_step(v: IPVars, d: ProblemData, r: IPVars,
                       px, pz, pzw) -> IPVars:
     """Back-substitute the eliminated variables given (px, pz, pzw)."""
@@ -673,6 +528,7 @@ def recover_full_step(v: IPVars, d: ProblemData, r: IPVars,
                   sw=psw, tw=ptw, zw=pzw, zsw=pzsw, ztw=pztw)
 
 
+@full_precision
 def solve_kkt(v: IPVars, d: ProblemData, f: KKTFactor, r: IPVars,
               refine_steps: int = 0, qn_compact=None) -> IPVars:
     """Solve the Newton system K p = -r for the full step pytree, with
@@ -694,6 +550,7 @@ def _negate(t):
     return jax.tree_util.tree_map(jnp.negative, t)
 
 
+@full_precision
 def apply_kkt_matrix(v: IPVars, d: ProblemData, p: IPVars,
                      qn_compact=None, qn_sigma: float = 0.0,
                      hvp: Optional[jnp.ndarray] = None) -> IPVars:

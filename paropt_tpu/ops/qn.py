@@ -10,10 +10,10 @@ so Hessian products cost one [K, n] matmul + one [K, K] solve (one fused
 all-reduce when n is sharded — the `mdot` pattern), and the KKT solve can apply
 B^{-1} through the Sherman-Morrison-Woodbury identity.
 
-TPU-first design: the state is a fixed-shape pytree (ONE stacked [2m, n]
-S/Y ring buffer with newest pair in rows m-1 / 2m-1 plus an active count),
-so `update`, `mult` and the compact-matrix assembly all `jit` without
-retracing; the branchy update safeguards (damping / skip,
+Accelerator-first design: the state is a fixed-shape pytree (ONE stacked
+[2m, n] S/Y ring buffer with newest pair in rows m-1 / 2m-1 plus an active
+count), so `update`, `mult` and the compact-matrix assembly all `jit`
+without retracing; the branchy update safeguards (damping / skip,
 `ParOptQuasiNewton.cpp:175-179`, damped update θ = 0.8·sᵀBs/(sᵀBs − yᵀs))
 are `jnp.where` selects.
 
@@ -39,6 +39,8 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 
+from ..dtypes import full_precision
+
 __all__ = ["QNState", "qn_init", "qn_reset", "qn_update", "qn_mult",
            "resolve_subspace_size",
            "qn_compact"]
@@ -58,7 +60,7 @@ class QNState:
     Rows [m-count:m] / [2m-count:] are active; inactive rows are zero.
 
     ``buf`` may be stored in a NARROWER dtype than the small-matrix /
-    scalar state (``storage_dtype='bfloat16'`` in `qn_init`, a TPU
+    scalar state (``storage_dtype='bfloat16'`` in `qn_init`, a device-memory
     bandwidth knob): the Gram matrices are then computed from the
     QUANTIZED pairs (so the compact form stays exactly consistent with
     the stored Z and B stays PSD) while all small algebra runs in the
@@ -97,10 +99,11 @@ class QNState:
 
 def default_storage_dtype(compute_dtype):
     """The shipping QN-storage policy: bfloat16 ring buffers when computing
-    in f32 on an accelerator (A/B on the v5e @1M vars, tol=1e-6: identical
-    22-iteration convergence and final objective, 237 vs 210 it/s —
-    scripts/solve_qn_bf16.py / scripts/ab_qn_bf16.py), native storage
-    otherwise (f64 hosts keep full-precision history)."""
+    in f32 on an accelerator (the [2m, n] history is the step's largest
+    stream; the Gram matrices are formed from the quantized pairs, so the
+    compact form stays exact for the stored history —
+    scripts/solve_qn_bf16.py / scripts/ab_qn_bf16.py compare the two),
+    native storage otherwise (f64 keeps full-precision history)."""
     try:
         on_accel = jax.default_backend() != "cpu"
     except Exception:  # pragma: no cover
@@ -112,12 +115,12 @@ def default_storage_dtype(compute_dtype):
 
 def resolve_subspace_size(requested: int, auto: bool, nvars: int,
                           compute_dtype) -> int:
-    """qn_subspace_auto policy (`ParOptQuasiNewton.cpp:127` sizing role,
-    TPU extension): the QN machinery is the dominant per-iteration HBM
-    traffic on large problems (~60% of step bytes at 1M f32 vars) and
-    scales ~linearly with the subspace size, while on the bench topology
-    workload msub=10/5/3 all converged in the same 18 iterations
-    (5.4/3.8/3.0 ms/iter).  'auto' caps the subspace at 5 once the
+    """qn_subspace_auto policy (`ParOptQuasiNewton.cpp:127` sizing role;
+    an extension, not in the reference): the QN machinery is the dominant
+    per-iteration device-memory traffic on large problems and scales
+    ~linearly with the subspace size, while on the synthetic topology
+    workload msub=10/5/3 converge in the same number of iterations.
+    'auto' caps the subspace at 5 once the
     problem is big enough to be bandwidth-bound (nvars >= 2^19) in
     32-bit or narrower precision; small problems and f64 keep the
     requested size."""
@@ -134,7 +137,7 @@ def qn_init(msub: int, nvars: int, dtype=None, qn_type: str = "bfgs",
             storage_dtype=None) -> QNState:
     """``storage_dtype`` (e.g. ``jnp.bfloat16``): dtype of the [2m, n] ring
     buffer only — small matrices/scalars stay in ``dtype``.  Halves the QN
-    machinery's HBM traffic on TPU at the cost of quantizing the stored
+    machinery's device-memory traffic at the cost of quantizing the stored
     (s, y) pairs (the approximation B changes smoothly; steps stay exact
     Newton steps of the quantized model)."""
     from ..dtypes import resolve_dtype
@@ -220,6 +223,7 @@ def qn_compact(state: QNState):
     return state.b0, Z, M
 
 
+@full_precision
 def qn_mult(state: QNState, x: jnp.ndarray,
             compact=None) -> jnp.ndarray:
     """B @ x.  Pass a precomputed ``compact`` to avoid re-assembly."""
@@ -239,45 +243,24 @@ def _new_b0(state: QNState, s, y, yTs, yTy, sTs):
     return jnp.where(yTs > 0.0, val, state.b0)
 
 
-_PALLAS_QN = None
-# experiment override: run the (measured-wash) Pallas roll kernel even for
-# narrow-storage buffers — see scripts/ab_qn_pallas_bf16.py
-_FORCE_PALLAS_QN_NARROW = False
-
-
-def _use_pallas_qn(state: QNState) -> bool:
-    """Fused roll/select/dots kernel gate: DEFAULT-ON on a single
-    accelerator chip (PAROPT_TPU_PALLAS=0 disables), with the shared
-    PAROPT_TPU_PALLAS_MAX_N size cutoff (custom-call outputs raise peak
-    HBM in the >6M-var regime, see kkt._pallas_max_n) plus a
-    lane-alignment/size guard — tiny problems keep the jnp path."""
-    global _PALLAS_QN
-    from .kkt import _pallas_max_n
-    # under a vmap batch (solve_batched's vmapped while_loop) keep the jnp
-    # roll: pallas_call's vmap batching rule on this kernel is unverified,
-    # and the batched sizes are latency-bound anyway.  (Type-name check:
-    # the BatchTracer class moved into jax._src in jax 0.9.)
-    if type(state.buf).__name__ == "BatchTracer":
-        return False
-    if (state.nvars % 256 != 0 or state.nvars < 4096
-            or state.nvars > _pallas_max_n()
-            # narrow (bf16) storage keeps the jnp roll: the bf16-capable
-            # kernel is a measured WASH there (238.9 jnp vs 236.3 kernel
-            # it/s interleaved @1M, visible bytes 3.07 vs 2.73+hidden —
-            # scripts/ab_qn_pallas_bf16.py 2026-08-18); XLA fuses the
-            # half-width roll as well as the custom call, without the
-            # call-boundary cost.  _FORCE_PALLAS_QN_NARROW re-enables it
-            # (the A/B script's toggle).
-            or (state.buf.dtype != state.SS.dtype
-                and not _FORCE_PALLAS_QN_NARROW)):
-        return False
-    if _PALLAS_QN is None:
-        from .pallas_kernels import pallas_qn_enabled
-        _PALLAS_QN = pallas_qn_enabled()
-    return _PALLAS_QN
+def _roll_select_dots(buf, s_st, y_st, s_g, y_g, upd):
+    """Shift the (s, y) pair into the ring buffer and form the new Gram
+    rows: ``rolled = [buf[1:m]; s; buf[m+1:]; y]``, ``dots = rolled @ [s,
+    y]ᵀ`` ([2m, 2], taken on the rolled buffer whether or not ``upd``
+    holds), and the buffer returned is ``rolled`` where ``upd`` else
+    ``buf``.  ``s_st``/``y_st`` are the pair in the storage dtype, and
+    ``s_g``/``y_g`` the same values in the compute dtype.  Kept as plain
+    JAX: inside the fused IP step XLA fuses it with its neighbours, and a
+    hand-written one-pass kernel measured slower there (CHANGES.md, PR 1)."""
+    m = buf.shape[0] // 2
+    rolled = jnp.concatenate(
+        [buf[1:m], s_st[None, :], buf[m + 1:], y_st[None, :]], axis=0)
+    dots = rolled @ jnp.stack([s_g, y_g]).T
+    return jnp.where(upd, rolled, buf), dots
 
 
 @jax.jit
+@full_precision
 def qn_update(state: QNState, s: jnp.ndarray, y: jnp.ndarray,
               z0: Optional[jnp.ndarray] = None, compact=None,
               accept=None) -> Tuple[QNState, jnp.ndarray, jnp.ndarray]:
@@ -369,53 +352,26 @@ def qn_update(state: QNState, s: jnp.ndarray, y: jnp.ndarray,
     # counters reflect that no update was stored.
     q_narrow = (state.buf.dtype != dtype
                 and state.qn_type in ("bfgs", "scaled_bfgs"))
-    q_reject = jnp.zeros((), dtype=bool)
-    if _use_pallas_qn(state):
-        # fused roll + select + Gram dots in one memory sweep; the dots
-        # rows m-1 / 2m-1 carry (s·s, s·y_use) / (y_use·s, y_use·y_use) so
-        # the b0 update needs no extra vector pass.  Narrow storage: the
-        # kernel quantizes (s, y) for the write and accumulates the dots
-        # in f32 from the quantized values (same contract as the jnp
-        # branch below).
-        from .pallas_kernels import qn_roll_update
-        if q_narrow:
-            # decided from one cheap pre-dot over the QUANTIZED pair so
-            # the gate folds into the kernel's select instead of costing
-            # a second full [2m, n] pass afterwards
-            s_q = s.astype(state.buf.dtype).astype(dtype)
-            y_q = y_use.astype(state.buf.dtype).astype(dtype)
-            q_reject = jnp.vdot(y_q, s_q) <= 1e-8 * jnp.vdot(y_q, y_q)
-            upd = upd & ~q_reject
-        buf_sel, dots = qn_roll_update(state.buf, s, y_use, upd)
-        dots = dots.astype(dtype)
-        # the dots rows m-1 / 2m-1 carry every scalar the b0 update needs
-        sTs_u, yTs_use, yTy_use = dots[m - 1, 0], dots[m - 1, 1], dots[-1, 1]
+    # narrow storage: quantize the pair BEFORE the Gram dots so the small
+    # matrices stay exactly consistent with the stored Z (the compact form
+    # is then the exact BNS form of the quantized history — B stays PSD)
+    if state.buf.dtype != dtype:
+        s_st = s.astype(state.buf.dtype)
+        y_st = y_use.astype(state.buf.dtype)
+        s_g = s_st.astype(dtype)
+        y_g = y_st.astype(dtype)
     else:
-        # narrow storage: quantize the pair BEFORE the Gram dots so the
-        # small matrices stay exactly consistent with the stored Z (the
-        # compact form is then the exact BNS form of the quantized
-        # history — B stays PSD)
-        if state.buf.dtype != dtype:
-            s_st = s.astype(state.buf.dtype)
-            y_st = y_use.astype(state.buf.dtype)
-            s_g = s_st.astype(dtype)
-            y_g = y_st.astype(dtype)
-        else:
-            s_st, y_st, s_g, y_g = s, y_use, s, y_use
-        # ring-buffer shift within each half: newest pair in rows m-1/2m-1
-        buf_new = jnp.concatenate(
-            [state.buf[1:m], s_st[None, :],
-             state.buf[m + 1:], y_st[None, :]], axis=0)
-        # incremental Gram update: fill the new last row/col with ONE
-        # stacked matvec (the mdot pattern)
-        dots = buf_new @ jnp.stack([s_g, y_g]).T           # [2m, 2]
-        sTs_u = sTs if s_g is s else jnp.vdot(s_g, s_g)
-        yTs_use = jnp.vdot(y_g, s_g)
-        yTy_use = jnp.vdot(y_g, y_g)
-        if q_narrow:
-            q_reject = yTs_use <= 1e-8 * yTy_use
-            upd = upd & ~q_reject
-        buf_sel = jnp.where(upd, buf_new, state.buf)
+        s_st, y_st, s_g, y_g = s, y_use, s, y_use
+    sTs_u = sTs if s_g is s else jnp.vdot(s_g, s_g)
+    yTs_use = jnp.vdot(y_g, s_g)
+    yTy_use = jnp.vdot(y_g, y_g)
+    q_reject = jnp.zeros((), dtype=bool)
+    if q_narrow:
+        q_reject = yTs_use <= 1e-8 * yTy_use
+        upd = upd & ~q_reject
+    # ring-buffer shift within each half (newest pair in rows m-1 / 2m-1)
+    # and the incremental Gram rows in ONE stacked matvec (mdot pattern)
+    buf_sel, dots = _roll_select_dots(state.buf, s_st, y_st, s_g, y_g, upd)
     Ss = dots[:m, 0]          # S_new · s
     Sy = dots[:m, 1]          # S_new · y_use  (new SY column)
     Ys = dots[m:, 0]          # Y_new · s      (new SY row)

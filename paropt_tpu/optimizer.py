@@ -58,7 +58,7 @@ class Optimizer:
         return self._result
 
     def _optimize_fused(self, algo: str) -> Dict[str, Any]:
-        """TPU extension: the selected algorithm's WHOLE loop on-device
+        """extension: the selected algorithm's WHOLE loop on-device
         (`use_fused_loop` option). Requires a jax-native problem."""
         if not getattr(self.problem, "jit_traceable", True):
             raise ValueError(

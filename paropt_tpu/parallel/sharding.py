@@ -2,10 +2,10 @@
 
 The reference distributes the design vector (and the sparse-constraint vector)
 in 1-D blocks over MPI ranks (`ParOptVec.{h,cpp}`, offsets via MPI_Allgather at
-`ParOptInteriorPoint.cpp:214-229`).  The TPU-native equivalent: the design axis
+`ParOptInteriorPoint.cpp:214-229`).  The JAX-native equivalent: the design axis
 ``n`` is sharded over a 1-D `jax.sharding.Mesh` axis (named ``"d"``) with a
 `NamedSharding`; everything of size ``ncon`` / ``qn_subspace`` is replicated.
-All cross-device reductions then lower to XLA `all-reduce` over ICI inside the
+All cross-device reductions then lower to XLA `all-reduce` (NCCL between GPUs) inside the
 jitted step — there is no explicit communication code anywhere in the
 framework (the SPMD analogue of `MPI_Allreduce`-in-vector-ops, `ParOptVec.cpp:
 63-143`).
@@ -33,7 +33,7 @@ __all__ = [
 
 # Name of the mesh axis over which design-dimension arrays are sharded.
 DESIGN_AXIS = "d"
-# Outer (cross-host / DCN) mesh axis of the hybrid multi-host mesh.
+# Outer (cross-host) mesh axis of the hybrid multi-host mesh.
 HOST_AXIS = "host"
 
 
@@ -44,9 +44,9 @@ def init_distributed(coordinator_address: Optional[str] = None,
     reference's `MPI_Init` (every rank runs the same program; the runtime
     wires the global device view).
 
-    All arguments default to the standard environment discovery
-    (`JAX_COORDINATOR_ADDRESS`/`JAX_NUM_PROCESSES`/`JAX_PROCESS_ID`, or the
-    cluster autodetection on TPU pods).  Safe to call once per process
+    All arguments default to JAX's own environment discovery
+    (`JAX_COORDINATOR_ADDRESS`/`JAX_NUM_PROCESSES`/`JAX_PROCESS_ID`, or a
+    cluster JAX detects).  Safe to call once per process
     before any device access; a no-op when already initialized."""
     if getattr(jax.distributed, "is_initialized", None) is not None \
             and jax.distributed.is_initialized():  # pragma: no cover
@@ -66,17 +66,16 @@ def hybrid_design_mesh(n_hosts: Optional[int] = None,
                        devices: Optional[Sequence[jax.Device]] = None
                        ) -> Mesh:
     """2-D ('host', 'd') mesh for multi-host runs: the outer axis crosses
-    hosts (DCN), the inner axis stays within a host's chips (ICI).
+    hosts (the slower network), the inner axis stays within a host's
+    devices.
 
     Design-dimension arrays shard over BOTH axes — `P(('host', 'd'))` — so
     each chip owns one contiguous block of the design vector (the
     reference's 1-D block distribution, `ParOptVec.h:75-98`) and XLA's
-    hierarchical all-reduce rides ICI within a host before touching DCN.
+    hierarchical all-reduce stays within a host before crossing hosts.
 
-    With explicit ``devices`` (or in a single process) the mesh is a
-    reshape of the device list; in a true multi-process run it uses
-    `mesh_utils.create_hybrid_device_mesh` so the outer axis aligns with
-    the physical DCN topology."""
+    In a single process the mesh is a reshape of the device list; in a
+    multi-process run each row of the mesh is one process's devices."""
     if devices is None:
         devices = jax.devices()
     if n_hosts is None:
@@ -86,19 +85,11 @@ def hybrid_design_mesh(n_hosts: Optional[int] = None,
     assert n_hosts * local_devices == len(devices), \
         (n_hosts, local_devices, len(devices))
     if jax.process_count() > 1:
-        n_slices = len({getattr(d, "slice_index", 0) or 0 for d in devices})
-        if n_slices == n_hosts:
-            # real TPU pod slices: let jax align the outer axis with the
-            # physical DCN topology
-            from jax.experimental import mesh_utils  # pragma: no cover
-            dev_mesh = mesh_utils.create_hybrid_device_mesh(  # pragma: no cover
-                (1, local_devices), (n_hosts, 1), devices=devices)
-        else:
-            # multi-process CPU/GPU: group the outer axis by owning process
-            # (each row of the mesh = one process's local devices, so the
-            # inner-axis collectives stay process-local)
-            devs = sorted(devices, key=lambda d: (d.process_index, d.id))
-            dev_mesh = np.asarray(devs).reshape(n_hosts, local_devices)
+        # group the outer axis by owning process (each row of the mesh =
+        # one process's local devices, so the inner-axis collectives stay
+        # process-local)
+        devs = sorted(devices, key=lambda d: (d.process_index, d.id))
+        dev_mesh = np.asarray(devs).reshape(n_hosts, local_devices)
     else:
         dev_mesh = np.asarray(devices).reshape(n_hosts, local_devices)
     return Mesh(dev_mesh, (HOST_AXIS, DESIGN_AXIS))

@@ -11,7 +11,7 @@ describes
 with the trailing ``ncon - ninequality`` / ``nwcon - nwinequality`` constraints
 treated as equalities (`ParOptProblem.h:88-113`).
 
-Differences from the reference, by design (TPU-first):
+Differences from the reference, by design (accelerator-first):
 
 - Methods return values instead of filling output vectors; the design vector is
   a (shardable) ``jax.numpy`` array rather than a distributed MPI vector.
@@ -23,7 +23,7 @@ Differences from the reference, by design (TPU-first):
   numpy/host functions; only the framework's own linear algebra is jitted).
 - Sparse (weighting) constraint Jacobians are represented by a structured
   operator (`SparseJacobian`) with static gather/scatter indices so products
-  compile to fused TPU kernels; this replaces the reference's four user
+  compile to fused device kernels; this replaces the reference's four user
   callbacks `evalSparseCon`/`addSparseJacobian`/`addSparseJacobianTranspose`/
   `addSparseInnerProduct` (`ParOptProblem.h:225-266`) while keeping a
   callback-style escape hatch.

@@ -7,7 +7,7 @@ free variables as a smaller problem to any of the optimizers.  Useful for
 continuation strategies, design freezes, and debugging subsets of a large
 design space.
 
-TPU-first notes: the expansion free->full is a static scatter (the fixed
+accelerator-first notes: the expansion free->full is a static scatter (the fixed
 values are baked into a constant full-size template and the free values are
 written through a precomputed index array), so the wrapped evaluations stay
 jittable and autodiff flows through to the free subset automatically.

@@ -1,6 +1,6 @@
 """l∞ trust-region / SL1QP optimizer with penalty and filter globalization.
 
-TPU-native re-design of `ParOptTrustRegion` (`src/ParOptTrustRegion.{h,cpp}`,
+JAX-native re-design of `ParOptTrustRegion` (`src/ParOptTrustRegion.{h,cpp}`,
 ~3k LoC).  The outer loop solves a sequence of l∞-trust-region quadratic
 subproblems — compact-QN quadratic objective + linearized constraints inside
 the box [max(-Δ, lb-xk), min(Δ, ub-xk)] — each solved by the interior-point
@@ -1018,7 +1018,7 @@ class TrustRegion:
 # infeasibility solve, QP solve, trial evaluation, quasi-Newton update,
 # accept/reject + radius + per-constraint penalty adaptation, KKT test) as
 # one XLA computation under lax.while_loop — zero host round-trips.  The
-# TPU-native form of the reference's DEFAULT algorithm
+# JAX-native form of the reference's DEFAULT algorithm
 # (`sl1qpOptimize`, `ParOptTrustRegion.cpp:1454-1671`), available for
 # jax-native problems whose sparse constraint Jacobian is CONSTANT
 # (the topology weighting-constraint case) — the same contract as FusedMMA.
@@ -1347,9 +1347,10 @@ class FusedTR:
                 update_type=o["qn_update_type"],
                 diag_type=o["qn_diag_type"])
 
-        # initial linearization at x0
-        f0, c0, cw0 = ev((), x0)
-        g0, A0 = gr((), x0)
+        # initial linearization at x0 (compiled: run eagerly, a FEM model's
+        # state solve compiles hundreds of small programs)
+        f0, c0, cw0 = jax.jit(ev)((), x0)
+        g0, A0 = jax.jit(gr)((), x0)
         zero = jnp.zeros((), dt)
         state0 = FusedTRState(
             xk=x0, fk=f0, ck=c0, gk=g0, Ak=A0, cwk=cw0, qn=qn0,
@@ -1429,7 +1430,7 @@ class FusedTR:
             return dataclasses.replace(self._state0, xk=x0, fk=f0, ck=c0,
                                        gk=g0, Ak=A0, cwk=cw0)
 
-        state = jax.vmap(batch_state)(x0_batch)
+        state = jax.jit(jax.vmap(batch_state))(x0_batch)
         if self._batched_run is None:
             step = self._step
 

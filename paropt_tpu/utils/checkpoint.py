@@ -2,7 +2,7 @@
 
 The reference writes binary parallel checkpoints of the full primal-dual
 state with MPI-IO collective writes (`writeSolutionFile`/`readSolutionFile`,
-`ParOptInteriorPoint.cpp:883-1110`).  The TPU-native equivalent is an Orbax
+`ParOptInteriorPoint.cpp:883-1110`).  The JAX-native equivalent is an Orbax
 checkpoint of the state pytree: sharded arrays are written/restored in
 parallel by TensorStore, and restore places each leaf back on its mesh with
 the sharding of the provided template.

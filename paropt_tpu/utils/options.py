@@ -1,4 +1,4 @@
-"""Typed option registry for the TPU-native ParOpt framework.
+"""Typed option registry for the JAX-native ParOpt framework.
 
 Mirrors the reference option system (``src/ParOptOptions.{h,cpp}``: typed entries
 with defaults, ranges and docstrings, set-tracking and iteration/introspection,
@@ -290,22 +290,22 @@ def add_ip_options(opts: OptionRegistry) -> OptionRegistry:
     o.add_enum("starting_point_strategy", "affine_step",
                ("least_squares_multipliers", "affine_step", "no_start_strategy"),
                "Initialize the Lagrange multiplier estimates and slack variables")
-    # TPU-specific extensions (not in the reference):
+    # Extensions (not in the reference):
     o.add_enum("dtype", "float64", ("float64", "float32"),
                "Floating-point precision of the optimizer state and KKT solves")
     o.add_enum("qn_storage_dtype", "auto", ("auto", "native", "bfloat16"),
                "Storage dtype of the quasi-Newton ring buffer and the factor's "
-               "Phi stacks (TPU HBM-bandwidth knob). 'auto' = bfloat16 when "
-               "computing in float32 on an accelerator, otherwise native; "
-               "'native' = optimizer dtype")
+               "Phi stacks (a device-memory bandwidth knob). 'auto' = "
+               "bfloat16 when computing in float32 on an accelerator, "
+               "otherwise native; 'native' = optimizer dtype")
     o.add_bool("qn_subspace_auto",
                False,
                "Shrink qn_subspace_size on large bandwidth-bound problems "
-               "(TPU HBM knob): the QN machinery's per-iteration HBM "
-               "traffic scales ~linearly with the subspace size, and on "
-               "the >= 0.5M-variable f32 topology workload msub=5 "
-               "converged in identical iterations at ~1.4x the "
-               "iteration rate (msub=3 at ~1.8x). 'auto' caps the "
+               "(a device-memory knob): the QN machinery's per-iteration "
+               "memory traffic scales ~linearly with the subspace size, "
+               "and on the >= 0.5M-variable f32 topology workload msub=5 "
+               "converges in the same iterations as msub=10. 'auto' caps "
+               "the "
                "subspace at 5 when nvars >= 2^19 in 32-bit precision; "
                "smaller problems keep the requested size")
     return o
@@ -407,7 +407,7 @@ def add_mma_options(opts: OptionRegistry) -> OptionRegistry:
                 "Regularization term applied in the MMA approximation")
     o.add_float("mma_move_limit", 0.2, 0.0, 1e20,
                 "Move limit for design variables to prevent oscillation")
-    # TPU-specific extension (not in the reference): the reference's
+    # Extension (not in the reference): the reference's
     # absolute l1/linfty stationarity tests (`ParOptMMA.cpp:406-488`) sit
     # at dtype-noise level for float32 at 10^6+ variables (the projected
     # gradient cannot cancel below ~eps*|g|); 'gradient' scales the
@@ -418,7 +418,7 @@ def add_mma_options(opts: OptionRegistry) -> OptionRegistry:
                "Scaling of the MMA KKT stationarity tolerances: 'none' = "
                "absolute (reference behavior); 'gradient' = relative to the "
                "objective gradient norms (use for float32 / large n)")
-    # TPU-specific extension (not in the reference): in float32 the MMA
+    # Extension (not in the reference): in float32 the MMA
     # outer loop stalls at an arithmetic-noise stationarity floor well
     # above the double-precision tolerances (the inner-solve accuracy
     # limits the multiplier quality, so l1 saw-tooths instead of
@@ -442,7 +442,7 @@ def add_facade_options(opts: OptionRegistry) -> OptionRegistry:
                   "The type of optimization algorithm")
     opts.add_string("ip_checkpoint_file", None,
                     "Checkpoint file for the interior point method")
-    # TPU-specific extension (not in the reference): route the facade to
+    # Extension (not in the reference): route the facade to
     # the fused whole-loop solvers (FusedIP/FusedTR/FusedMMA) — the entire
     # outer loop runs as one XLA computation with zero host round-trips.
     # Requires a jax-native problem (autodiff gradients, constant sparse

@@ -1,10 +1,7 @@
 """Back-to-back A/B: fused step with bfloat16 quasi-Newton storage
 (`qn_init(storage_dtype=bf16)` — quantizes the [2m, n] ring buffer AND the
 factor's Phi stacks) vs native f32 storage.  One process, interleaved
-windows (_ab_common).  Pallas kernels at their defaults in both variants;
-note the QN-roll kernel auto-falls-back to jnp for narrow storage, so the
-ON variant combines [bf16 buffers + jnp roll] vs OFF [f32 + Pallas roll] —
-i.e. this measures the SHIPPING configurations, not an isolated knob.
+windows (_ab_common).
 
 Convergence check: the final res/fobj lines must both reach the 1e-6
 operating point for the ON variant to be admissible.
@@ -14,8 +11,6 @@ import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-if os.environ.get("JAX_PLATFORMS", "") not in ("cpu",):
-    os.environ["PAROPT_TPU_NO_X64"] = "1"
 
 import jax.numpy as jnp  # noqa: E402
 

@@ -1,7 +1,7 @@
 """A/B: k whole IP solves batched via FusedIP.solve_batched vs sequential
 jit_loop solves, at a latency-bound single-instance size.
 
-Run on the TPU:  timeout 900 python scripts/bench_batched.py
+Run on the GPU:  timeout 900 python scripts/bench_batched.py
 """
 
 import os
@@ -10,8 +10,6 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-if os.environ.get("JAX_PLATFORMS", "") not in ("cpu",):
-    os.environ["PAROPT_TPU_NO_X64"] = "1"
 
 import jax
 import jax.numpy as jnp

@@ -2,9 +2,6 @@
 SL1QP on the synthetic topology problem, fused inner IP solves."""
 
 import os
-if os.environ.get("JAX_PLATFORMS", "") not in ("cpu",):
-    os.environ["PAROPT_TPU_NO_X64"] = "1"
-
 import sys
 import time
 

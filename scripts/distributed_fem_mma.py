@@ -7,6 +7,10 @@ the multigrid V-cycle's restriction/prolongation distribute over the hybrid
 framework, previously covered only on a single-process virtual mesh
 (`tests/test_sharding.py::test_fused_mma_fem_topology_sharded`).
 
+CPU-only: every process runs on virtual CPU devices (JAX_PLATFORMS is
+forced to cpu).  On GPUs, one process drives all cards of a host over a
+design mesh (`python chip_smoke.py --chips 4`).
+
 Single-host testing (2 processes x 2 virtual CPU devices):
 
     for i in 0 1; do
@@ -43,7 +47,7 @@ def main():
     args = ap.parse_args()
 
     # environment must be fixed before jax imports
-    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    os.environ["JAX_PLATFORMS"] = "cpu"
     flags = os.environ.get("XLA_FLAGS", "")
     if "xla_force_host_platform_device_count" not in flags:
         os.environ["XLA_FLAGS"] = (
@@ -61,8 +65,7 @@ def main():
                          num_processes=args.num_processes,
                          process_id=args.process_id)
 
-    if jax.default_backend() == "cpu":
-        jax.config.update("jax_enable_x64", True)
+    jax.config.update("jax_enable_x64", True)
 
     import jax.numpy as jnp
     import numpy as np
@@ -70,7 +73,7 @@ def main():
     from paropt_tpu.mma import FusedMMA
     from paropt_tpu.parallel import sharding as shlib
 
-    dtype = "float64" if jax.default_backend() == "cpu" else "float32"
+    dtype = "float64"
     if args.nez > 0:
         from paropt_tpu.models.fem_topology3d import FEMTopology3D
         prob = FEMTopology3D(nex=args.nex, ney=args.ney, nez=args.nez,

@@ -5,7 +5,11 @@ The SPMD analogue of the reference's `mpirun -np N` deployment mode
 is collective).  Every process runs this same program; `jax.distributed`
 wires the global device view, the design axis shards over the hybrid
 (process x local-device) mesh, and all reductions inside the jitted step
-lower to cross-process collectives (gloo on CPU, ICI/DCN on TPU pods).
+lower to cross-process collectives (gloo).
+
+CPU-only: every process runs on virtual CPU devices (JAX_PLATFORMS is
+forced to cpu).  On GPUs, one process drives all cards of a host over a
+design mesh (`python chip_smoke.py --chips 4`).
 
 Single-host testing (2 processes x 2 virtual CPU devices):
 
@@ -47,7 +51,7 @@ def main():
     args = ap.parse_args()
 
     # environment must be fixed before jax imports
-    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    os.environ["JAX_PLATFORMS"] = "cpu"
     flags = os.environ.get("XLA_FLAGS", "")
     if "xla_force_host_platform_device_count" not in flags:
         os.environ["XLA_FLAGS"] = (
@@ -66,8 +70,7 @@ def main():
                          num_processes=args.num_processes,
                          process_id=args.process_id)
 
-    if jax.default_backend() == "cpu":
-        jax.config.update("jax_enable_x64", True)
+    jax.config.update("jax_enable_x64", True)
 
     import jax.numpy as jnp
     import numpy as np
@@ -77,7 +80,7 @@ def main():
     from paropt_tpu.ops import qn as qnmod
     from paropt_tpu.parallel import sharding as shlib
 
-    dtype = jnp.float64 if jax.default_backend() == "cpu" else jnp.float32
+    dtype = jnp.float64
     prob = SyntheticTopology(n=args.n, block=8, dtype=dtype)
     model = ip_fused.model_from_problem(prob)
     opts = ip_fused.FusedIPOptions(use_quasi_newton_update=True,

@@ -1,4 +1,4 @@
-"""Profile the 3-D FEM hot path on the TPU: stiffness matvec, MG V-cycle,
+"""Profile the 3-D FEM hot path on the GPU: stiffness matvec, MG V-cycle,
 full mgcg state solve, objective and gradient — wall time (best of reps)
 plus XLA cost-analysis bytes for roofline placement.
 
@@ -12,8 +12,6 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-if os.environ.get("JAX_PLATFORMS", "") not in ("cpu",):
-    os.environ.setdefault("PAROPT_TPU_NO_X64", "1")
 
 import jax
 import jax.numpy as jnp

@@ -1,6 +1,6 @@
 """Weak/strong scaling harness: fused IP iterations/s vs mesh size.
 
-On real multi-chip hardware this measures ICI scaling; on CPU with
+On real multi-GPU hardware this measures NVLink scaling; on CPU with
 xla_force_host_platform_device_count it validates the collective path and
 gives a (meaningless for absolute perf) sanity curve.
 
@@ -28,8 +28,8 @@ def main():
     ap.add_argument("--distributed", action="store_true",
                     help="multi-process run: call jax.distributed."
                          "initialize() (coordinator from the standard env "
-                         "vars / TPU pod autodetection) and measure over a "
-                         "hybrid (hosts x local-chips) DCN mesh")
+                         "vars) and measure over a hybrid "
+                         "(hosts x local-devices) mesh")
     ap.add_argument("--coordinator", type=str, default=None)
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)

@@ -12,8 +12,6 @@ import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-if os.environ.get("JAX_PLATFORMS", "") not in ("cpu",):
-    os.environ["PAROPT_TPU_NO_X64"] = "1"
 
 import jax
 import jax.numpy as jnp

@@ -7,8 +7,8 @@
 //
 // Like the reference's ParOptQuasiDefSparseMat ("a simple serial LDL sparse
 // matrix factorization", ParOptSparseMat.cpp:231-233) this path is serial
-// per-host: irregular sparse factorization is a poor fit for the TPU, so it
-// runs on the host CPU while the TPU executes the dense/batched work.
+// per-host: irregular sparse factorization is a poor fit for the accelerator,
+// so it runs on the host CPU while the device executes the dense/batched work.
 //
 // Algorithms are standard textbook forms (elimination tree, ereach,
 // up-looking Cholesky; quotient-graph minimum degree), implemented from

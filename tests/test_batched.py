@@ -1,7 +1,7 @@
 """Batched whole-solve path (`FusedIP.solve_batched`) — many IP solves as
 ONE vmapped XLA computation (multi-start / problem-data sweeps).
 
-TPU extension with no reference analogue: in the reference every solve is a
+extension with no reference analogue: in the reference every solve is a
 separate MPI job (`ParOptInteriorPoint.cpp:4399`). Correctness contract:
 each batch instance must match its own single `jit_loop` solve."""
 

@@ -149,7 +149,7 @@ def test_multi_process_solve_matches_single_process(
 # ---------------------------------------------------------------------------
 # Flagship FEM workload cross-process: the stencil matvec halo exchanges and
 # multigrid restriction/prolongation are the most sharding-sensitive code in
-# the framework (VERDICT r3 item 8) — 2 real processes must reproduce the
+# the framework — 2 real processes must reproduce the
 # single-process FusedMMA trajectory.
 # ---------------------------------------------------------------------------
 

@@ -194,7 +194,7 @@ def test_openmdao_sparse_driver_with_fake(monkeypatch):
 
 
 def test_facade_use_fused_loop_routes_all_algorithms():
-    """TPU-extension option `use_fused_loop`: the facade runs the WHOLE
+    """extension option `use_fused_loop`: the facade runs the WHOLE
     selected loop on-device (FusedIP/FusedTR/FusedMMA) and matches the
     host loops' solutions on a jax-native problem."""
     import numpy as np

@@ -86,7 +86,7 @@ def test_fused_eigen_tr_3d_design():
 
 
 def test_minv_floor_f32_regime():
-    """The dtype-aware Minv regularization floor (the da34b66 TPU-f32
+    """The dtype-aware Minv regularization floor (the da34b66 f32
     fix): in float32 the relative eigenvalue floor is 1e3*eps (cond
     bound ~1e4), in float64 the historical 1e-8 — and at a mesh where
     the KS aggregate concentrates on one mode, the f32 floor actually
@@ -118,7 +118,7 @@ def test_minv_floor_f32_regime():
 def test_fused_eigen_tr_f32_fine_mesh_progress():
     """f32 fused eigen-TR at a mesh in the high-scale regime: every
     outer iteration stays finite (no NaN-freeze) and the design makes
-    progress — the end-to-end guard for the TPU f32 failure that froze
+    progress — the end-to-end guard for the f32 failure that froze
     64x32x32 at mass=1.0 with rho=nan."""
     p = FrequencyTopology3D(nex=16, ney=8, nez=8, N=4, cg_iters=30,
                             lobpcg_iters=50, solver="mgcg",

@@ -9,7 +9,7 @@ from paropt_tpu.models.fem_topology import FEMTopology
 
 
 def test_stencil_gather_scatter_matches_edofs():
-    """The slice/pad element gather/scatter (the TPU-fast path) must equal
+    """The slice/pad element gather/scatter (the gather-free path) must equal
     the index-based u[edofs] gather and .at[edofs].add scatter exactly."""
     rng = np.random.default_rng(3)
     prob = FEMTopology(nex=7, ney=5)

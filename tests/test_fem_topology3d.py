@@ -181,12 +181,15 @@ def test_layout_grid_vs_aos_equivalence():
     assert abs(float(rg["fobj"]) - float(ra["fobj"])) < 1e-8
 
 
-def test_layout_auto_per_level_selection():
-    """'auto' picks the stencil only at/above the nnz threshold — per
-    multigrid level, so one problem can mix layouts."""
-    import os
+def test_layout_auto_per_level_selection(monkeypatch):
+    """'auto' is AoS at every width unless PAROPT_TPU_FEM3D_GRID_MIN_NNZ is
+    set; then it picks the stencil only at/above that nnz — per multigrid
+    level, so one problem can mix layouts."""
     prob = FEMTopology3D(nex=8, ney=4, nez=4, cg_iters=10)
-    thr = int(os.environ.get("PAROPT_TPU_FEM3D_GRID_MIN_NNZ", "48"))
+    monkeypatch.delenv("PAROPT_TPU_FEM3D_GRID_MIN_NNZ", raising=False)
+    assert not any(prob._use_grid(nnz) for nnz in (3, 41, 81, 1 << 12))
+    thr = 48
+    monkeypatch.setenv("PAROPT_TPU_FEM3D_GRID_MIN_NNZ", str(thr))
     assert prob._use_grid(thr) and prob._use_grid(thr + 1)
     assert not prob._use_grid(thr - 1)
     assert FEMTopology3D(nex=4, ney=2, nez=2, cg_iters=5,

@@ -129,7 +129,7 @@ def test_fused_mma_chunked_matches_single_execution():
 
 def test_mma_f32_stall_criterion_terminates():
     """The dtype/n-robust MMA stopping criterion (mma_max_no_improvement, a
-    TPU extension mirroring the reference IP's no-improvement exit,
+    extension mirroring the reference IP's no-improvement exit,
     `ParOptInteriorPoint.cpp:4649-4684`): in float32 the outer loop
     saw-tooths at an arithmetic-noise stationarity floor far above the
     double-precision tolerances (measured: rel l1 ~7e-4 at n=2^14 — the

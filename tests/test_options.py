@@ -57,7 +57,7 @@ def test_copy_independent():
 def test_option_registry_name_parity():
     """Every LIVE option registration in the reference sources has a
     matching entry here (audited 2026-08-17: 92/92; `soc_rank_gamma` is
-    commented out in the reference; `dtype` is our documented TPU
+    commented out in the reference; `dtype` is our documented an
     extension)."""
     from paropt_tpu.utils.options import make_options
 
@@ -69,7 +69,7 @@ def test_option_registry_name_parity():
     extensions = {"dtype", "qn_storage_dtype", "qn_subspace_auto",
                   "mma_kkt_error_scaling",
                   "mma_max_no_improvement",
-                  "use_fused_loop"}              # TPU-native extensions
+                  "use_fused_loop"}              # JAX-native extensions
     assert extensions <= ours
     assert not (expected_absent & ours)
     # spot-check a few from each group
@@ -109,7 +109,7 @@ def test_full_option_table_parity():
     extensions = {"dtype", "qn_storage_dtype", "qn_subspace_auto",
                   "mma_kkt_error_scaling",
                   "mma_max_no_improvement",
-                  "use_fused_loop"}  # documented TPU-native extensions
+                  "use_fused_loop"}  # documented JAX-native extensions
     assert set(ref) - set(ours) == set(), "missing reference options"
     assert set(ours) - set(ref) == extensions, "undocumented extra options"
 

@@ -1,5 +1,6 @@
-"""Pallas fused quasi-definite apply: interpret-mode correctness vs the jnp
-path (compiled execution is exercised by bench.py on real TPU)."""
+"""The plain-JAX paths that replaced the Pallas kernels: the quasi-definite
+solve and the quasi-Newton ring roll (`qn._roll_select_dots`, `qn_update`),
+each against a hand-written dense reference."""
 
 import numpy as np
 import jax
@@ -7,108 +8,11 @@ import jax.numpy as jnp
 import pytest
 
 from paropt_tpu.ops import kkt
-from paropt_tpu.ops.pallas_kernels import (pallas_available,
-                                           quasi_def_apply_blocked_t)
-
-pytestmark = pytest.mark.skipif(not pallas_available(),
-                                reason="pallas unavailable")
-
-
-def _setup(K=5, k=4, nwcon=256, seed=0):
-    rng = np.random.default_rng(seed)
-    dinv = jnp.asarray(rng.uniform(0.5, 2.0, (k, nwcon)))
-    vals = jnp.asarray(rng.standard_normal((k, nwcon)))
-    c0 = jnp.asarray(rng.uniform(0.5, 1.5, nwcon))
-    cw = c0 + jnp.sum(vals ** 2 * dinv, axis=0)
-    bx = jnp.asarray(rng.standard_normal((K, k, nwcon)))
-    bw = jnp.asarray(rng.standard_normal((K, nwcon)))
-    return dinv, vals, cw, bx, bw
-
-
-def test_pallas_quasi_def_matches_jnp():
-    dinv, vals, cw, bx, bw = _setup()
-    K, k, nwcon = bx.shape
-    yx, yw = quasi_def_apply_blocked_t(dinv, 1.0 / cw, vals, bx, bw,
-                                       interpret=True)
-    # jnp reference of the same chain
-    t = dinv[None] * bx
-    aw = jnp.sum(vals[None] * t, axis=1)
-    yw_ref = (bw - aw) / cw
-    yx_ref = dinv[None] * (bx + vals[None] * yw_ref[:, None, :])
-    assert np.allclose(np.asarray(yw), np.asarray(yw_ref), atol=1e-12)
-    assert np.allclose(np.asarray(yx), np.asarray(yx_ref), atol=1e-12)
-
-
-def test_phi_gram_fused_factor_matches_jnp():
-    """The fully-fused factor setup (phi_gram_blocked_t + small algebra)
-    reproduces the jnp `setup_kkt_factor` field-for-field (Xa, G, Phi_*,
-    Ce) on a blocked_t problem with a dense constraint and a populated
-    compact QN."""
-    import jax.numpy as jnp
-    from paropt_tpu.ops import qn as qnmod
-
-    rng = np.random.default_rng(11)
-    k, nwcon, ncon, m = 4, 128, 1, 3
-    n = k * nwcon
-    cols = (np.arange(nwcon, dtype=np.int32)[:, None]
-            + np.arange(k, dtype=np.int32)[None, :] * nwcon)
-    vals = jnp.asarray(rng.standard_normal((nwcon, k)))
-    d = kkt.ProblemData(
-        g=jnp.asarray(rng.standard_normal(n)),
-        A=jnp.asarray(rng.standard_normal((ncon, n))),
-        c=jnp.ones(ncon), cw=jnp.zeros(nwcon),
-        lb=jnp.full(n, -1.0), ub=jnp.full(n, 1.0),
-        lb_mask=jnp.ones(n), ub_mask=jnp.ones(n),
-        gamma_s=jnp.zeros(ncon), gamma_t=jnp.full(ncon, 1e3),
-        gamma_sw=jnp.zeros(nwcon), gamma_tw=jnp.full(nwcon, 1e3),
-        Aw_cols=jnp.asarray(cols), Aw_vals=vals, nwblock=1,
-        Aw_layout="blocked_t")
-    v = kkt.zero_vars(n, ncon, nwcon)
-    import dataclasses as dc
-    pos = lambda shape, lo=0.4, hi=1.6: jnp.asarray(
-        rng.uniform(lo, hi, shape))
-    v = dc.replace(v, x=jnp.asarray(rng.uniform(-0.5, 0.5, n)),
-                   zl=pos(n), zu=pos(n), s=pos(ncon), t=pos(ncon),
-                   z=jnp.asarray(rng.standard_normal(ncon)),
-                   zs=pos(ncon), zt=pos(ncon), sw=pos(nwcon), tw=pos(nwcon),
-                   zw=jnp.asarray(rng.standard_normal(nwcon)),
-                   zsw=pos(nwcon), ztw=pos(nwcon))
-    qn = qnmod.qn_init(m, n)
-    for i in range(m):
-        s = jnp.asarray(rng.standard_normal(n))
-        y = 2.0 * s + 0.3 * jnp.asarray(rng.standard_normal(n))
-        qn, _, _ = qnmod.qn_update(qn, s, y)
-    cq = qnmod.qn_compact(qn)
-
-    f_ref = kkt.setup_kkt_factor(v, d, qn_compact=cq)
-    b0, Zqn, Mqn = cq
-    from paropt_tpu.ops.kkt import _bound_quotients
-    ql, qu = _bound_quotients(v, d)
-    Dinv = 1.0 / (b0 + ql + qu)
-    Gamma = v.s / v.zs + v.t / v.zt
-    C0 = v.sw / v.zsw + v.tw / v.ztw
-    Cw = d.Aw_inner_blocks(Dinv) + C0.reshape(-1, 1)[:, :, None] \
-        * jnp.eye(1)
-    f_pl = kkt._setup_factor_fused(v, d, Dinv, Gamma, C0, jnp.sqrt(Cw),
-                                   Zqn, Mqn, None, interpret=True)
-    for name in ("Dinv", "Xa", "Wa", "Phi_x", "Phi_z", "Phi_w", "Ce_inv"):
-        a = getattr(f_ref, name)
-        b = getattr(f_pl, name)
-        assert np.allclose(np.asarray(a), np.asarray(b), atol=1e-9), name
-    assert np.allclose(np.asarray(f_ref.G_lu), np.asarray(f_pl.G_lu),
-                       atol=1e-9)
-    # and the resulting KKT solves agree
-    r = kkt.kkt_residual(v, d, jnp.asarray(0.1), 1.0)
-    p_ref = kkt.solve_kkt(v, d, f_ref, r)
-    p_pl = kkt.solve_kkt(v, d, f_pl, r)
-    for leaf_a, leaf_b in zip(jax.tree_util.tree_leaves(p_ref),
-                              jax.tree_util.tree_leaves(p_pl)):
-        assert np.allclose(np.asarray(leaf_a), np.asarray(leaf_b),
-                           atol=1e-8)
 
 
 def test_pallas_matches_kkt_quasi_def_solve():
-    """Against the full jnp quasi_def_solve on a blocked_t ProblemData."""
+    """The batched quasi-definite solve on a blocked_t ProblemData satisfies
+    [[D, -Aw'], [Aw, C0]] [yx; yw] = [bx; bw] for every right-hand side."""
     rng = np.random.default_rng(3)
     k, nwcon = 4, 128
     n = k * nwcon
@@ -134,45 +38,67 @@ def test_pallas_matches_kkt_quasi_def_solve():
                       Ce_inv=None)
     bx = jnp.asarray(rng.standard_normal((K, n)))
     bw = jnp.asarray(rng.standard_normal((K, nwcon)))
-    # jnp reference path
-    yx_ref, yw_ref = kkt.quasi_def_solve(f, d, bx, bw)
-    # pallas (interpret) path
-    yx3, yw = quasi_def_apply_blocked_t(
-        Dinv.reshape(k, nwcon), 1.0 / (jnp.sqrt(Cw)[:, 0, 0] ** 2),
-        vals.T, bx.reshape(K, k, nwcon), bw, interpret=True)
-    assert np.allclose(np.asarray(yx3.reshape(K, n)), np.asarray(yx_ref),
-                       atol=1e-11)
-    assert np.allclose(np.asarray(yw), np.asarray(yw_ref), atol=1e-11)
-    # sanity: the solve actually satisfies the quasi-definite system
-    yx = yx_ref[0]
-    yw0 = yw_ref[0]
-    lhs_x = yx / Dinv - d.Aw_rmatvec(yw0)
-    lhs_w = d.Aw_matvec(yx) + C0 * yw0
-    assert np.allclose(np.asarray(lhs_x), np.asarray(bx[0]), atol=1e-10)
-    assert np.allclose(np.asarray(lhs_w), np.asarray(bw[0]), atol=1e-10)
+    yx, yw = kkt.quasi_def_solve(f, d, bx, bw)
+    assert yx.shape == (K, n) and yw.shape == (K, nwcon)
+    # dense reference of the same operator
+    Aw = np.zeros((nwcon, n))
+    Aw[np.arange(nwcon)[:, None], cols] = np.asarray(vals)
+    lhs_x = np.asarray(yx) / np.asarray(Dinv) - np.asarray(yw) @ Aw
+    lhs_w = np.asarray(yx) @ Aw.T + np.asarray(C0) * np.asarray(yw)
+    assert np.allclose(lhs_x, np.asarray(bx), atol=1e-10)
+    assert np.allclose(lhs_w, np.asarray(bw), atol=1e-10)
+
+
+def _dense_roll(buf, s, y):
+    """Hand-rolled ring shift: drop the oldest row of each half, append."""
+    buf = np.asarray(buf)
+    m = buf.shape[0] // 2
+    S = np.vstack([buf[1:m], np.asarray(s)[None]])
+    Y = np.vstack([buf[m + 1:], np.asarray(y)[None]])
+    return np.vstack([S, Y])
 
 
 def test_qn_roll_update_matches_manual():
-    """Fused roll/select/dots kernel vs a hand-rolled jnp reference."""
-    from paropt_tpu.ops.pallas_kernels import qn_roll_update
+    """`_roll_select_dots` vs a hand-rolled roll: rolled/kept buffer per
+    the update flag, and the Gram rows taken on the rolled buffer."""
+    from paropt_tpu.ops import qn as qnmod
 
     rng = np.random.default_rng(7)
     m, n = 5, 512
     buf = jnp.asarray(rng.standard_normal((2 * m, n)))
     s = jnp.asarray(rng.standard_normal(n))
     y = jnp.asarray(rng.standard_normal(n))
-
-    rolled = jnp.concatenate([buf[1:m], s[None], buf[m + 1:], y[None]],
-                             axis=0)
-    dots_ref = np.stack([rolled @ s, rolled @ y], axis=1)
-
+    rolled = _dense_roll(buf, s, y)
+    dots_ref = np.stack([rolled @ np.asarray(s), rolled @ np.asarray(y)],
+                        axis=1)
     for upd in (True, False):
-        out, dots = qn_roll_update(buf, s, y, jnp.asarray(upd),
-                                   interpret=True)
-        want = rolled if upd else buf
-        assert np.allclose(np.asarray(out), np.asarray(want))
+        out, dots = jax.jit(qnmod._roll_select_dots)(buf, s, y, s, y,
+                                                     jnp.asarray(upd))
+        want = rolled if upd else np.asarray(buf)
+        assert np.array_equal(np.asarray(out), want)
         # dots are always taken on the rolled buffer
         assert np.allclose(np.asarray(dots), dots_ref, atol=1e-10)
+
+
+def _drive_updates(qnmod, m, n, qn_type, update_type, storage_dtype=None):
+    """m+2 updates with a negated-curvature pair and accept gates; returns
+    the final state and, per update, (s, y, skip, damp, accept, newest
+    stored y row)."""
+    state = qnmod.qn_init(m, n, qn_type=qn_type, update_type=update_type,
+                          storage_dtype=storage_dtype)
+    rng = np.random.default_rng(5)
+    log = []
+    for i in range(m + 2):
+        s = jnp.asarray(rng.standard_normal(n))
+        y = 1.5 * s + 0.2 * jnp.asarray(rng.standard_normal(n))
+        if i == 2:
+            y = -y  # exercise the skip/damp ladder
+        accept = None if i % 2 == 0 else jnp.asarray(i != 3)
+        state, skip, damp = qnmod.qn_update(state, s, y, accept=accept)
+        log.append((s, y, int(skip), int(damp),
+                    True if accept is None else bool(accept),
+                    np.asarray(state.buf)[-1]))
+    return state, log
 
 
 @pytest.mark.parametrize("qn_type,update_type", [
@@ -180,46 +106,28 @@ def test_qn_roll_update_matches_manual():
     ("bfgs", "damped_update"),
     ("sr1", "skip_negative_curvature"),
 ])
-def test_qn_update_pallas_branch_matches_jnp(monkeypatch, qn_type,
-                                             update_type):
-    """qn_update through the Pallas branch (interpret mode) reproduces the
-    jnp branch leaf-for-leaf, including the accept gate."""
-    from functools import partial
+def test_qn_update_pallas_branch_matches_jnp(qn_type, update_type):
+    """qn_update's ring and Gram matrices against a hand-rolled dense
+    history: every stored pair is in the buffer in order, SS = S Sᵀ and
+    SY = S Yᵀ over the stored rows, and count tracks the stored pairs."""
     from paropt_tpu.ops import qn as qnmod
-    from paropt_tpu.ops import pallas_kernels as pk
 
-    rng = np.random.default_rng(21)
     m, n = 4, 4096
-
-    def run(pallas):
-        if pallas:
-            monkeypatch.setattr(qnmod, "_PALLAS_QN", True)
-            monkeypatch.setattr(pk, "qn_roll_update",
-                                partial(pk.qn_roll_update, interpret=True))
-        else:
-            monkeypatch.setattr(qnmod, "_PALLAS_QN", False)
-        state = qnmod.qn_init(m, n, qn_type=qn_type,
-                              update_type=update_type)
-        rng2 = np.random.default_rng(5)
-        outs = []
-        for i in range(m + 2):
-            s = jnp.asarray(rng2.standard_normal(n))
-            y = 1.5 * s + 0.2 * jnp.asarray(rng2.standard_normal(n))
-            if i == 2:
-                y = -y  # exercise the skip/damp ladder
-            accept = None if i % 2 == 0 else jnp.asarray(i != 3)
-            state, skip, damp = qnmod.qn_update(state, s, y, accept=accept)
-            outs.append((skip, damp))
-        return state, outs
-
-    st_jnp, fl_jnp = run(False)
-    st_pl, fl_pl = run(True)
-    for (a, b) in zip(fl_jnp, fl_pl):
-        assert int(a[0]) == int(b[0]) and int(a[1]) == int(b[1])
-    for name in ("S", "Y", "SS", "SY", "count", "b0"):
-        a = np.asarray(getattr(st_jnp, name))
-        b = np.asarray(getattr(st_pl, name))
-        assert np.allclose(a, b, rtol=1e-9, atol=1e-9), name
+    state, log = _drive_updates(qnmod, m, n, qn_type, update_type)
+    buf = np.zeros((2 * m, n))
+    count = 0
+    for s, y, skip, damp, accept, y_row in log:
+        if accept and not skip:
+            # damped: the stored y is θy + (1-θ)Bs, not y
+            buf = _dense_roll(buf, s, y_row if damp else y)
+            count = min(count + 1, m)
+    assert int(state.count) == count
+    got = np.asarray(state.buf)
+    assert np.allclose(got, buf, rtol=1e-12, atol=1e-12)
+    S, Y = got[:m], got[m:]
+    assert np.allclose(np.asarray(state.SS), S @ S.T, rtol=1e-9, atol=1e-9)
+    assert np.allclose(np.asarray(state.SY), S @ Y.T, rtol=1e-9, atol=1e-9)
+    assert count < len(log)   # the rejected step stored nothing
 
 
 def test_qn_update_accept_false_is_identity():
@@ -273,108 +181,30 @@ def test_qn_update_scaled_accept_gates_z0():
     assert np.array_equal(np.asarray(accepted.buf), np.asarray(state.buf))
 
 
-def test_quasi_def_min_batch_threshold(monkeypatch):
-    """The opt-in Pallas quasi-def apply only engages for multi-RHS batches
-    >= PAROPT_TPU_PALLAS_MIN_BATCH; small solves stay in XLA, and both
-    paths agree where the kernel does engage."""
-    from paropt_tpu.ops import pallas_kernels as pk
-
-    monkeypatch.setattr(kkt, "_PALLAS_QD", True)
-    calls = []
-    orig = pk.quasi_def_apply_blocked_t
-
-    def spy(dinv, cwinv, vals, bx3, bw, interpret=False):
-        calls.append(bx3.shape[0])
-        return orig(dinv, cwinv, vals, bx3, bw, interpret=True)
-
-    monkeypatch.setattr(pk, "quasi_def_apply_blocked_t", spy)
-
-    rng = np.random.default_rng(3)
-    k, nwcon = 4, 128
-    n = k * nwcon
-    cols = (np.arange(nwcon, dtype=np.int32)[:, None]
-            + np.arange(k, dtype=np.int32)[None, :] * nwcon)
-    vals = jnp.asarray(rng.standard_normal((nwcon, k)))
-    d = kkt.ProblemData(
-        g=jnp.zeros(n), A=jnp.zeros((0, n)), c=jnp.zeros(0),
-        cw=jnp.zeros(nwcon), lb=jnp.full(n, -1.0), ub=jnp.full(n, 1.0),
-        lb_mask=jnp.ones(n), ub_mask=jnp.ones(n),
-        gamma_s=jnp.zeros(0), gamma_t=jnp.zeros(0),
-        gamma_sw=jnp.zeros(nwcon), gamma_tw=jnp.full(nwcon, 1e3),
-        Aw_cols=jnp.asarray(cols), Aw_vals=vals, nwblock=1,
-        Aw_layout="blocked_t")
-    Dinv = jnp.asarray(rng.uniform(0.5, 2.0, n))
-    C0 = jnp.asarray(rng.uniform(0.5, 1.5, nwcon))
-    Cw = C0.reshape(-1, 1, 1) + d.Aw_inner_blocks(Dinv)
-    f = kkt.KKTFactor(Dinv=Dinv, Gamma=None, C0=C0, Cw_chol=jnp.sqrt(Cw),
-                      Xa=None, Wa=None, G_lu=None, Zqn=None, Phi_x=None,
-                      Phi_z=None, Phi_w=None, Ce_inv=None)
-
-    # small batch: jnp path only
-    bx = jnp.asarray(rng.standard_normal((3, n)))
-    bw = jnp.asarray(rng.standard_normal((3, nwcon)))
-    kkt.quasi_def_solve(f, d, bx, bw)
-    assert calls == []
-
-    # large batch: kernel path, identical to jnp
-    bx = jnp.asarray(rng.standard_normal((12, n)))
-    bw = jnp.asarray(rng.standard_normal((12, nwcon)))
-    yx_pl, yw_pl = kkt.quasi_def_solve(f, d, bx, bw)
-    assert calls == [12]
-    monkeypatch.setattr(kkt, "_PALLAS_QD", False)
-    yx_ref, yw_ref = kkt.quasi_def_solve(f, d, bx, bw)
-    assert np.allclose(np.asarray(yx_pl), np.asarray(yx_ref), atol=1e-11)
-    assert np.allclose(np.asarray(yw_pl), np.asarray(yw_ref), atol=1e-11)
-
-    # env override recovers the all-batches behavior
-    monkeypatch.setattr(kkt, "_PALLAS_QD", True)
-    monkeypatch.setenv("PAROPT_TPU_PALLAS_MIN_BATCH", "1")
-    calls.clear()
-    kkt.quasi_def_solve(f, d, bx[:2], bw[:2])
-    assert calls == [2]
-
-
-def test_qn_update_pallas_bf16_storage(monkeypatch):
-    """Narrow-storage qn_update through the Pallas branch (interpret mode):
-    the rolled buffer holds the QUANTIZED pairs, the Gram rows accumulate
-    in f32 from the quantized values, and flags/counters match the jnp
-    narrow-storage branch (values to f32 accumulation accuracy)."""
-    from functools import partial
+def test_qn_update_pallas_bf16_storage():
+    """Narrow (bfloat16) ring storage: the buffer holds the QUANTIZED pairs
+    in hand-rolled order, and the Gram matrices are formed from those
+    quantized values in the compute dtype (f64)."""
     from paropt_tpu.ops import qn as qnmod
-    from paropt_tpu.ops import pallas_kernels as pk
 
     m, n = 4, 4096
+    state, log = _drive_updates(qnmod, m, n, "bfgs",
+                                "skip_negative_curvature",
+                                storage_dtype=jnp.bfloat16)
+    assert state.buf.dtype == jnp.bfloat16
+    assert state.SS.dtype == jnp.float64
 
-    def run(pallas):
-        # bypass the whole gate: narrow storage defaults to the jnp roll
-        # (kernel is a measured wash on the TPU), so force the branch
-        monkeypatch.setattr(qnmod, "_use_pallas_qn", lambda st: pallas)
-        if pallas:
-            monkeypatch.setattr(pk, "qn_roll_update",
-                                partial(pk.qn_roll_update, interpret=True))
-        state = qnmod.qn_init(m, n, dtype=jnp.float64,
-                              storage_dtype=jnp.bfloat16)
-        rng = np.random.default_rng(11)
-        flags = []
-        for i in range(m + 2):
-            s = jnp.asarray(rng.standard_normal(n))
-            y = 1.5 * s + 0.2 * jnp.asarray(rng.standard_normal(n))
-            if i == 2:
-                y = -y
-            accept = None if i % 2 == 0 else jnp.asarray(i != 3)
-            state, skip, damp = qnmod.qn_update(state, s, y, accept=accept)
-            flags.append((int(skip), int(damp)))
-        return state, flags
+    def q(v):
+        return np.asarray(jnp.asarray(v).astype(jnp.bfloat16)
+                          .astype(jnp.float64))
 
-    st_jnp, fl_jnp = run(False)
-    st_pl, fl_pl = run(True)
-    assert st_pl.buf.dtype == jnp.bfloat16
-    assert fl_jnp == fl_pl
-    assert int(st_jnp.count) == int(st_pl.count)
-    # buffers hold identical quantized values
-    assert np.array_equal(np.asarray(st_jnp.buf, np.float32),
-                          np.asarray(st_pl.buf, np.float32))
-    for name in ("SS", "SY", "b0"):
-        a = np.asarray(getattr(st_jnp, name))
-        b = np.asarray(getattr(st_pl, name))
-        assert np.allclose(a, b, rtol=1e-5, atol=1e-6), name
+    buf = np.zeros((2 * m, n))
+    for s, y, skip, damp, accept, _ in log:
+        assert damp == 0
+        if accept and not skip:
+            buf = _dense_roll(buf, q(s), q(y))
+    got = np.asarray(state.buf.astype(jnp.float64))
+    assert np.array_equal(got, buf)
+    S, Y = got[:m], got[m:]
+    assert np.allclose(np.asarray(state.SS), S @ S.T, rtol=1e-9, atol=1e-9)
+    assert np.allclose(np.asarray(state.SY), S @ Y.T, rtol=1e-9, atol=1e-9)

@@ -1,6 +1,6 @@
-"""Narrow (bfloat16) quasi-Newton storage — the TPU HBM-bandwidth knob
+"""Narrow (bfloat16) quasi-Newton storage — the device-memory bandwidth knob
 (`qn_init(storage_dtype=...)` / option `qn_storage_dtype`, a documented
-TPU extension; no reference analogue — the reference is f64 throughout)."""
+extension; no reference analogue — the reference is f64 throughout)."""
 
 import numpy as np
 import jax.numpy as jnp

@@ -278,8 +278,8 @@ def test_fused_mehrotra_strategies():
 
 
 def test_f32_smoke():
-    """The f32 configuration (explicit dtype, as used on TPU where f64 is
-    emulated) converges to the f32-appropriate tolerance."""
+    """The f32 configuration (explicit dtype, the bench.py configuration
+    on the GPU) converges to the f32-appropriate tolerance."""
     prob = SyntheticTopology(n=1024, block=8, dtype=jnp.float32)
     model = ip_fused.model_from_problem(prob)
     opts = ip_fused.FusedIPOptions(use_quasi_newton_update=True,
